@@ -5,8 +5,10 @@ A coordinate MLP: Fourier-embed the world point and time, then
 ``n_layers + 2`` dense layers (132 -> 256 -> 256 x4 -> 3 at the canonical
 width) with leaky-relu 0.2 between them. The whole query runs through the
 embedded-MLP kernel (``ops/cuda/mlp_kernel.py``) on a CUDA tensor and its
-plain version on a CPU tensor. Parameter keys follow the reference's
-``convs.<i>.conv.{weight,bias}`` (the JAX package's ``convs__<i>__conv``).
+plain version on a CPU tensor; ``chain`` runs a whole Euler integration
+through kernel C (``ops/cuda/chain_kernel.py``). Parameter keys follow the
+reference's ``convs.<i>.conv.{weight,bias}`` (the JAX package's
+``convs__<i>__conv``).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..ops.cuda.chain_kernel import mlp_embed_chain
 from ..ops.cuda.mlp_kernel import mlp_embed
 from .blocks import get_initializer, init_module
 
@@ -60,3 +63,15 @@ class SceneFlowFieldNet(nn.Module):
                         [l.weight for l in layers], [l.bias for l in layers],
                         self.n_freq_xyz, self.n_freq_t, self.time_dependent)
         return out.reshape(*lead, -1)
+
+    def chain(self, pts: torch.Tensor, ts: torch.Tensor, dt: torch.Tensor,
+              n_steps: int, n_evals: int, sf_div: float):
+        """Euler-integrate the field from ``pts [N,3]``, ``ts``/``dt [N,1]``
+        (zeros for a time-independent field) over ``n_evals`` evaluations,
+        each divided by ``sf_div``: ``(sum of the first n_steps, first,
+        second)`` evaluation, each ``[N,3]``."""
+        layers = [layer.conv for layer in self.convs]
+        return mlp_embed_chain(pts, ts, dt, [l.weight for l in layers],
+                               [l.bias for l in layers], self.n_freq_xyz,
+                               self.n_freq_t, self.time_dependent, n_steps,
+                               n_evals, sf_div)

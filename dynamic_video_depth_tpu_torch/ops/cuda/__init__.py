@@ -2,13 +2,24 @@
 and launch counters. Importing this package builds nothing: a kernel is
 compiled at its first launch on a CUDA tensor (``build.py``)."""
 
-from . import mlp_kernel, warp_kernel
+from . import chain_kernel, loss_kernel, mlp_kernel, warp_kernel
+
+KERNEL_MODULES = (warp_kernel, mlp_kernel, chain_kernel, loss_kernel)
 
 
 def reset_launches() -> None:
-    warp_kernel.reset_launches()
-    mlp_kernel.reset_launches()
+    for module in KERNEL_MODULES:
+        module.reset_launches()
 
 
 def launch_counts() -> dict:
-    return {**warp_kernel.launches, **mlp_kernel.launches}
+    counts = {}
+    for module in KERNEL_MODULES:
+        counts.update(module.launches)
+    return counts
+
+
+def launch_variants() -> dict:
+    """Launches since the last reset by the shape that picks a kernel's
+    branch: the warp's channel count, the chain's (n_steps, n_evals)."""
+    return dict(warp_kernel.variants + chain_kernel.variants)

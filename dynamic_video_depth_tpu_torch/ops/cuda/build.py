@@ -4,6 +4,8 @@ Each library is compiled by ``nvcc`` for ``sm_90a`` from the sources under
 ``dynamic_video_depth_tpu_torch/csrc/`` into ``build/kernels/`` at the repo
 root (git-ignored). The file name carries a hash of the sources and flags, so
 an edited source rebuilds and an unchanged one loads the existing library.
+Headers (``.cuh``) are listed with the sources so that they enter the hash;
+only the ``.cu`` files are compiled.
 Nothing here runs at import time: the CPU tests import every module, and
 a build only starts when a wrapper is handed a CUDA tensor.
 """
@@ -36,9 +38,10 @@ def _nvcc() -> str:
                        "toolkit to build (PATH or /usr/local/cuda/bin)")
 
 
-def library_path(name: str, sources) -> Path:
-    """Where the library built from ``sources`` (paths under csrc) lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library_path(name: str, sources, flags: tuple = ()) -> Path:
+    """Where the library built from ``sources`` (paths under csrc) with the
+    extra nvcc ``flags`` lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(flags)).encode())
     for src in sources:
         h.update(src.encode())
         h.update((CSRC_DIR / src).read_bytes())
@@ -46,15 +49,15 @@ def library_path(name: str, sources) -> Path:
 
 
 @functools.lru_cache(maxsize=None)
-def load_library(name: str, sources: tuple) -> ctypes.CDLL:
+def load_library(name: str, sources: tuple, flags: tuple = ()) -> ctypes.CDLL:
     """Compile (once per source hash) and load ``lib<name>.so``. The
     compiler's register/spill report is written beside the library."""
-    out = library_path(name, sources)
+    out = library_path(name, sources, flags)
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(CSRC_DIR / s) for s in sources)]
+        cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp),
+               *(str(CSRC_DIR / s) for s in sources if s.endswith(".cu"))]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed building {name}:\n{proc.stderr}")

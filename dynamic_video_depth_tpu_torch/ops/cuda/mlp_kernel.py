@@ -23,7 +23,9 @@ import torch.nn.functional as F
 from ..embedding import sceneflow_embed_consts, sceneflow_features
 from . import build
 
-SOURCES = ("mlp_embed.cu",)
+LIBRARY = "dvd_mlp_embed"
+SOURCES = ("mlp_embed.cu", "mlp_tile.cuh")
+FLAGS = ()
 REPLACES = "dynamic_video_depth_tpu/ops/pallas/mlp_kernel.py:343"
 SLOPE = 0.2  # leaky-relu negative slope (reference networks/blocks.py)
 MAX_LAYERS = 8
@@ -73,7 +75,7 @@ def embed_consts(n_freq_xyz: int, n_freq_t: int, time_dependent: bool,
 
 
 def _lib():
-    lib = build.load_library("dvd_mlp_embed", SOURCES)
+    lib = build.load_library(LIBRARY, SOURCES, FLAGS)
     if not getattr(lib, "_dvd_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.dvd_mlp_fwd.argtypes = [p, p, p, p, p, p, i, p, i, p]
@@ -85,11 +87,14 @@ def _lib():
     return lib
 
 
-def _ptrs(ts: Sequence[torch.Tensor]):
+def ptr_array(ts: Sequence[torch.Tensor]):
+    """A C array of the tensors' device pointers."""
     return (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))
 
 
-def _check(pts, ts, consts, weights, biases) -> list:
+def check_inputs(pts, ts, consts, weights, biases) -> list:
+    """Shapes, devices and types of a field query on the card; returns the
+    layer widths ``[C0, ..., out]``."""
     n = pts.shape[0]
     if pts.shape != (n, 3) or ts.shape != (n, 1):
         raise ValueError(f"mlp kernel: pts {tuple(pts.shape)} / ts "
@@ -116,15 +121,15 @@ def _check(pts, ts, consts, weights, biases) -> list:
 
 def mlp_forward_cuda(pts, ts, consts, weights, biases) -> torch.Tensor:
     """Launch the forward kernel on the current stream."""
-    dims = _check(pts, ts, consts, weights, biases)
+    dims = check_inputs(pts, ts, consts, weights, biases)
     pts, ts = pts.contiguous(), ts.contiguous()
     weights = [w.contiguous() for w in weights]
     biases = [b.contiguous() for b in biases]
     n = pts.shape[0]
     out = torch.empty((n, dims[-1]), device=pts.device, dtype=torch.float32)
     rc = _lib().dvd_mlp_fwd(
-        pts.data_ptr(), ts.data_ptr(), consts.data_ptr(), _ptrs(weights),
-        _ptrs(biases), (ctypes.c_int * len(dims))(*dims), len(weights),
+        pts.data_ptr(), ts.data_ptr(), consts.data_ptr(), ptr_array(weights),
+        ptr_array(biases), (ctypes.c_int * len(dims))(*dims), len(weights),
         out.data_ptr(), n, stream_handle(pts.device))
     build.check(rc, "dvd_mlp_fwd")
     launches["mlp_fwd"] += 1
@@ -137,9 +142,21 @@ def split_count(n: int) -> int:
     return max(1, min(64, -(-n // 1024)))
 
 
+def backward_scratch(n: int, dims, device):
+    """The backward's scratch: every layer's inputs ``A_l [n, dims[l]]`` and
+    output gradients ``dZ_l [n, dims[l+1]]``, and the weight-gradient
+    partial sums ``[S, max_l dims[l+1] (dims[l] + 1)]``."""
+    f32 = dict(device=device, dtype=torch.float32)
+    layers = range(len(dims) - 1)
+    acts = [torch.empty((n, dims[i]), **f32) for i in layers]
+    dzs = [torch.empty((n, dims[i + 1]), **f32) for i in layers]
+    part = max(dims[i + 1] * (dims[i] + 1) for i in layers)
+    return acts, dzs, torch.empty((split_count(n), part), **f32)
+
+
 def mlp_backward_cuda(pts, ts, consts, weights, biases, g):
     """Launch the backward kernels; returns ``(dpts, dts, dWs, dbs)``."""
-    dims = _check(pts, ts, consts, weights, biases)
+    dims = check_inputs(pts, ts, consts, weights, biases)
     pts, ts, g = pts.contiguous(), ts.contiguous(), g.contiguous()
     weights = [w.contiguous() for w in weights]
     biases = [b.contiguous() for b in biases]
@@ -154,17 +171,13 @@ def mlp_backward_cuda(pts, ts, consts, weights, biases, g):
     dts = torch.empty((n, 1), **f32)
     dws = [torch.empty_like(w) for w in weights]
     dbs = [torch.empty_like(b) for b in biases]
-    acts = [torch.empty((n, dims[i]), **f32) for i in range(len(weights))]
-    dzs = [torch.empty((n, dims[i + 1]), **f32) for i in range(len(weights))]
-    s = split_count(n)
-    part = max(dims[i + 1] * (dims[i] + 1) for i in range(len(weights)))
-    partial = torch.empty((s, part), **f32)
+    acts, dzs, partial = backward_scratch(n, dims, dev)
     rc = _lib().dvd_mlp_bwd(
-        pts.data_ptr(), ts.data_ptr(), consts.data_ptr(), _ptrs(weights),
-        _ptrs(biases), (ctypes.c_int * len(dims))(*dims), len(weights),
-        g.data_ptr(), dpts.data_ptr(), dts.data_ptr(), _ptrs(dws), _ptrs(dbs),
-        _ptrs(acts), _ptrs(dzs), partial.data_ptr(), s, n,
-        stream_handle(dev))
+        pts.data_ptr(), ts.data_ptr(), consts.data_ptr(), ptr_array(weights),
+        ptr_array(biases), (ctypes.c_int * len(dims))(*dims), len(weights),
+        g.data_ptr(), dpts.data_ptr(), dts.data_ptr(), ptr_array(dws),
+        ptr_array(dbs), ptr_array(acts), ptr_array(dzs), partial.data_ptr(),
+        partial.shape[0], n, stream_handle(dev))
     build.check(rc, "dvd_mlp_bwd")
     launches["mlp_bwd"] += 1
     return dpts, dts, dws, dbs

@@ -11,6 +11,7 @@ tensor launches the kernel or raises. There is no other route.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -18,16 +19,22 @@ import torch
 from ..grid_sample import backward_warp as backward_warp_plain
 from . import build
 
+LIBRARY = "dvd_warp"
 SOURCES = ("warp.cu",)
+FLAGS = ()
 REPLACES = "dynamic_video_depth_tpu/ops/pallas/warp_kernel.py:257"
 # launches of each kernel since the last reset (the forward and the
 # backward count separately)
 launches = {"warp_fwd": 0, "warp_bwd": 0}
+# the same launches by channel count: (kernel, C) -> launches; C=4 takes
+# the vector path of the forward, other C the scalar one
+variants = collections.Counter()
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+    variants.clear()
 
 
 def device_type(t: torch.Tensor) -> str:
@@ -39,7 +46,7 @@ def stream_handle(device: torch.device) -> int:
 
 
 def _lib():
-    lib = build.load_library("dvd_warp", SOURCES)
+    lib = build.load_library(LIBRARY, SOURCES, FLAGS)
     if not getattr(lib, "_dvd_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.dvd_warp_fwd.argtypes = [p, p, p, i, i, i, i, i, p]
@@ -76,6 +83,7 @@ def warp_forward_cuda(src: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
                              b, h, w, c, vec, stream_handle(src.device))
     build.check(rc, "dvd_warp_fwd")
     launches["warp_fwd"] += 1
+    variants["warp_fwd", c] += 1
     return out
 
 
@@ -89,6 +97,7 @@ def warp_backward_cuda(g: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
                              b, h, w, c, stream_handle(g.device))
     build.check(rc, "dvd_warp_bwd")
     launches["warp_bwd"] += 1
+    variants["warp_bwd", c] += 1
     return dsrc
 
 

@@ -6,12 +6,15 @@ torch_port.py``). This module maps a flax variable tree, given as nested
 dicts of numpy arrays, to a torch state dict of the port and back:
 
 - path ``('net_depth', 'seq__0', 'kernel')`` <-> key ``net_depth.seq.0.weight``;
-- conv kernels HWIO <-> OIHW, dense kernels ``[in, out]`` <-> Linear
+- conv kernels HWIO <-> OIHW (a grouped kernel ``[kh, kw, cin/g, cout]``
+  <-> ``[cout, cin/g, kh, kw]``), dense kernels ``[in, out]`` <-> Linear
   ``[out, in]``;
 - batch norm ``scale``/``bias`` <-> ``weight``/``bias`` and batch stats
   ``mean``/``var`` <-> ``running_mean``/``running_var``.
 
 Neither direction imports jax: the caller converts arrays to numpy.
+
+``bias_midas_output`` is a fixture helper for random-weight MiDaS runs.
 """
 
 from __future__ import annotations
@@ -121,3 +124,20 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor],
     if extra:
         raise KeyError(f"state dict keys with no flax leaf: {extra[:5]}")
     return out
+
+
+MIDAS_OUTPUT_BIAS = "scratch.output_conv.4.bias"
+
+
+def bias_midas_output(net: nn.Module, bias: float = 200.0) -> nn.Module:
+    """Set the MiDaS output conv's bias to ``bias`` so that a net with
+    random weights predicts depth near ``10000 / bias`` (about 50 at 200).
+
+    Random MiDaS weights put the output near 0, so the depth
+    ``10000 / clamp(out, 1e-2)`` is about 1e6 and every pixel fails the MiDaS
+    far-field masks (``< 100``): the loss is exactly 0 and nothing trains.
+    For test fixtures and smoke runs only; the trainer never calls it (a
+    pretrained checkpoint puts the depth in range)."""
+    with torch.no_grad():
+        net.state_dict()[MIDAS_OUTPUT_BIAS].fill_(bias)
+    return net

@@ -2,20 +2,26 @@
 (counterpart of the JAX package's ``train.py``).
 
 Takes the flag names of ``experiments/davis/train_sequence.sh`` that this
-port implements, plus ``--device`` (default ``cuda``). Settings the port
-does not implement yet raise instead of being ignored: ``--midas``,
-``--depth_net midas``, ``--use_cnn``, ``--mixed_precision_training``,
-``--n_chips``, ``--resume`` and ``--load_reference_ckpt``; any other unknown
-flag is an argparse error. Per-step losses go to stdout; checkpoints are not
-written yet.
+port implements, plus ``--device`` (default ``cuda``). The depth net is
+``--depth_net`` when given, else MiDaS with ``--midas`` and the hourglass
+without; the MiDaS far-field loss masks follow the same choice.
+``--use_pallas_sf_chain`` and ``--use_pallas_loss`` (``auto|on|off``, the
+JAX names) pick the fused chain and fused loss paths: ``auto`` is on for
+``--device cuda`` and off on the CPU, where ``on`` runs the kernels' plain
+versions. Settings the port does not implement yet raise instead of being
+ignored: ``--use_cnn``, ``--mixed_precision_training``, ``--n_chips``,
+``--resume`` and ``--load_reference_ckpt``; any other unknown flag is an
+argparse error. Per-step losses go to stdout; checkpoints are not written
+yet, and MiDaS starts from random weights (the pretrained checkpoint is not
+loaded yet).
 
-Example (the canonical DAVIS recipe with the hourglass net)::
+Example (the canonical DAVIS recipe with MiDaS)::
 
   python -m dynamic_video_depth_tpu_torch.train --net scene_flow_motion_field \\
       --dataset davis_sequence --track_id dog --log_time --epoch_batches 2000 \\
       --epoch 20 --lr 1e-6 --vali_batches 150 --batch_size 1 --optim adam \\
       --scene_lr_mul 1000 --warm_sf 5 --acc_mul 1 --disp_mul 1 --flow_mul 1 \\
-      --sf_mag_div 100 --time_dependent --gaps 1,2,4,6,8 --use_disp
+      --sf_mag_div 100 --time_dependent --gaps 1,2,4,6,8 --use_disp --midas
 """
 
 from __future__ import annotations
@@ -28,7 +34,8 @@ import torch
 from ..data.davis_sequence import Dataset
 from .loop import Trainer
 from .losses import LossConfig
-from .step import SceneFlowMotionFieldStep, TrainStepConfig
+from .step import (FUSED_MODES, SceneFlowMotionFieldStep, TrainStepConfig,
+                   effective_depth_net)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -63,10 +70,14 @@ def build_parser() -> argparse.ArgumentParser:
     for flag in ("--time_dependent", "--use_disp", "--use_disp_ratio",
                  "--use_motion_seg", "--weight_steps", "--warm_reg"):
         a(flag, action="store_true")
-    a("--depth_net", default="hourglass",
-      help="'hourglass' (the reference default) or 'tiny' for tests")
+    a("--midas", action="store_true", help="MiDaS depth net and loss masks")
+    a("--depth_net", default="",
+      help="'' defers to --midas; 'midas', 'hourglass' or 'tiny' (tests)")
+    for knob in ("sf_chain", "loss"):
+        a(f"--use_pallas_{knob}", choices=FUSED_MODES, default="auto",
+          help="fused path: auto = on for a CUDA device, off on the CPU")
     # accepted only to refuse them: not ported yet
-    for flag in ("--midas", "--use_cnn", "--mixed_precision_training"):
+    for flag in ("--use_cnn", "--mixed_precision_training"):
         a(flag, action="store_true")
     a("--n_chips", type=int, default=None)
     a("--resume", type=int, default=0)
@@ -76,8 +87,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _refuse_unported(opt) -> None:
     unported = {
-        "--midas": opt.midas,
-        "--depth_net midas": opt.depth_net == "midas",
         "--use_cnn": opt.use_cnn,
         "--mixed_precision_training": opt.mixed_precision_training,
         "--n_chips": opt.n_chips is not None,
@@ -91,19 +100,25 @@ def _refuse_unported(opt) -> None:
 
 
 def step_config(opt) -> TrainStepConfig:
+    """The step's configuration; the net and the loss's MiDaS masks both
+    follow ``effective_depth_net``."""
+    net = effective_depth_net(opt.depth_net, opt.midas)
     return TrainStepConfig(
         lr=opt.lr, scene_lr_mul=opt.scene_lr_mul,
         adam_beta1=opt.adam_beta1, adam_beta2=opt.adam_beta2,
-        depth_net=opt.depth_net, time_dependent=opt.time_dependent,
+        midas=net == "midas", depth_net=net,
+        time_dependent=opt.time_dependent,
         n_freq_xyz=opt.n_freq_xyz, n_freq_t=opt.n_freq_t,
         init_type=opt.init_type,
         loss=LossConfig(
             flow_mul=opt.flow_mul, disp_mul=opt.disp_mul,
             acc_mul=opt.acc_mul, sf_mag_div=opt.sf_mag_div,
             use_disp=opt.use_disp, use_disp_ratio=opt.use_disp_ratio,
-            midas=False, weight_steps=opt.weight_steps,
+            midas=net == "midas", weight_steps=opt.weight_steps,
             warm_reg=opt.warm_reg, interp_steps=opt.interp_steps),
         use_motion_seg=opt.use_motion_seg,
+        use_pallas_sf_chain=opt.use_pallas_sf_chain,
+        use_pallas_loss=opt.use_pallas_loss,
     )
 
 

@@ -9,7 +9,9 @@ import sys
 import pytest
 import torch
 
-from dynamic_video_depth_tpu_torch.ops.cuda import mlp_kernel, warp_kernel
+from dynamic_video_depth_tpu_torch.ops import cuda as cuda_ops
+from dynamic_video_depth_tpu_torch.ops.cuda import (chain_kernel, loss_kernel,
+                                                  mlp_kernel, warp_kernel)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -78,6 +80,7 @@ def test_warp_wrapper_never_routes_cuda_to_plain(monkeypatch):
     out.sum().backward()
     assert lib.calls == ["dvd_warp_fwd", "dvd_warp_bwd"]
     assert warp_kernel.launches == {"warp_fwd": 1, "warp_bwd": 1}
+    assert warp_kernel.variants == {("warp_fwd", 4): 1, ("warp_bwd", 4): 1}
 
 
 def test_mlp_wrapper_never_routes_cuda_to_plain(monkeypatch):
@@ -97,21 +100,109 @@ def test_mlp_wrapper_never_routes_cuda_to_plain(monkeypatch):
     assert mlp_kernel.launches == {"mlp_fwd": 1, "mlp_bwd": 1}
 
 
-@pytest.mark.parametrize("module", [warp_kernel, mlp_kernel])
+def _chain_args(requires_grad=False):
+    dims = [132, 8, 3]
+    ws = [torch.randn(b, a, requires_grad=requires_grad)
+          for a, b in zip(dims[:-1], dims[1:])]
+    bs = [torch.zeros(b, requires_grad=requires_grad) for b in dims[1:]]
+    pts = torch.randn(6, 3, requires_grad=requires_grad)
+    return (pts, torch.rand(6, 1), torch.full((6, 1), 0.1), ws, bs, 16, 16,
+            True)
+
+
+def test_chain_wrapper_never_routes_cuda_to_plain(monkeypatch):
+    """The chain's forward launches kernel B per evaluation, its backward
+    kernel C once."""
+    lib = _FakeLib()
+    plain = _pretend_cuda(monkeypatch, mlp_kernel, lib)
+    _pretend_cuda(monkeypatch, chain_kernel, lib)
+    for name in ("chain_plain", "mlp_embed_plain"):
+        monkeypatch.setattr(chain_kernel, name, plain)
+    monkeypatch.setattr(mlp_kernel, "mlp_embed_plain", plain)
+    chain_kernel.reset_launches()
+    mlp_kernel.reset_launches()
+    acc, f0, f1 = chain_kernel.mlp_embed_chain(*_chain_args(True), 2, 3,
+                                               100.0)
+    (acc.sum() + f0.sum() + f1.sum()).backward()
+    assert lib.calls == ["dvd_mlp_fwd"] * 3 + ["dvd_chain_bwd"]
+    assert chain_kernel.launches == {"chain_bwd": 1}
+    assert chain_kernel.variants == {("chain_bwd", 2, 3): 1}
+    assert mlp_kernel.launches == {"mlp_fwd": 3, "mlp_bwd": 0}
+
+
+def test_launch_variants_name_the_branch(monkeypatch):
+    """``launch_variants`` tells the warp's channel counts and the chain's
+    (n_steps, n_evals) apart, and a reset clears them with the counts."""
+    lib = _FakeLib()
+    for module in (warp_kernel, mlp_kernel, chain_kernel):
+        _pretend_cuda(monkeypatch, module, lib)
+    cuda_ops.reset_launches()
+    src = torch.randn(1, 4, 5, 3, requires_grad=True)
+    warp_kernel.backward_warp(src, torch.zeros(1, 4, 5, 2)).sum().backward()
+    warp_kernel.backward_warp(torch.randn(1, 4, 5, 4), torch.zeros(1, 4, 5, 2))
+    for n_steps, n_evals in ((1, 2), (4, 4)):
+        acc, f0, f1 = chain_kernel.mlp_embed_chain(*_chain_args(True),
+                                                   n_steps, n_evals, 100.0)
+        (acc.sum() + f0.sum() + f1.sum()).backward()
+    assert cuda_ops.launch_variants() == {
+        ("warp_fwd", 3): 1, ("warp_bwd", 3): 1, ("warp_fwd", 4): 1,
+        ("chain_bwd", 1, 2): 1, ("chain_bwd", 4, 4): 1}
+    assert cuda_ops.launch_counts()["warp_fwd"] == 2
+    cuda_ops.reset_launches()
+    assert cuda_ops.launch_variants() == {}
+    assert not any(cuda_ops.launch_counts().values())
+
+
+def _loss_args(dtype=torch.float32, requires_grad=False):
+    b, h, w = 1, 4, 5
+    gp1, w3, sf = (torch.randn(b, h, w, 3, dtype=dtype,
+                               requires_grad=requires_grad) for _ in range(3))
+    return (gp1, w3, sf, torch.zeros(b, h, w, 2), torch.ones(b, h, w),
+            torch.ones(b, h, w), torch.zeros(b, 24))
+
+
+def test_loss_wrapper_never_routes_cuda_to_plain(monkeypatch):
+    lib = _FakeLib()
+    plain = _pretend_cuda(monkeypatch, loss_kernel, lib)
+    monkeypatch.setattr(loss_kernel, "projection_loss_plain", plain)
+    loss_kernel.reset_launches()
+    sums = loss_kernel.projection_loss(*_loss_args(requires_grad=True),
+                                       use_disp=True, midas=True)
+    sums.sum().backward()
+    assert lib.calls == ["dvd_loss_partials", "dvd_loss_fwd", "dvd_loss_bwd"]
+    assert loss_kernel.launches == {"loss_fwd": 1, "loss_bwd": 1}
+
+
+MODULES = [warp_kernel, mlp_kernel, chain_kernel, loss_kernel]
+
+
+def _launch(module):
+    """One call of ``module``'s public wrapper, its backward included."""
+    if module is warp_kernel:
+        src = torch.zeros(1, 2, 2, 4, requires_grad=True)
+        return module.backward_warp(src, torch.zeros(1, 2, 2, 2)).sum()
+    if module is mlp_kernel:
+        return module.mlp_embed(
+            torch.zeros(2, 3), torch.zeros(2, 1), [torch.zeros(3, 132)],
+            [torch.zeros(3)], 16, 16, True).sum()
+    if module is chain_kernel:
+        return sum(o.sum() for o in module.mlp_embed_chain(*_chain_args(True),
+                                                           2, 2, 100.0))
+    return module.projection_loss(*_loss_args(requires_grad=True)).sum()
+
+
+@pytest.mark.parametrize("module", MODULES)
 def test_failed_launch_raises(monkeypatch, module):
     """A launch whose CUDA status is nonzero raises; nothing falls back."""
-    plain = _pretend_cuda(monkeypatch, module, _FakeLib(rc=1))
-    if module is warp_kernel:
-        monkeypatch.setattr(module, "backward_warp_plain", plain)
-        call = lambda: module.backward_warp(torch.zeros(1, 2, 2, 4),
-                                            torch.zeros(1, 2, 2, 2))
-    else:
-        monkeypatch.setattr(module, "mlp_embed_plain", plain)
-        call = lambda: module.mlp_embed(
-            torch.zeros(2, 3), torch.zeros(2, 1), [torch.zeros(3, 132)],
-            [torch.zeros(3)], 16, 16, True)
+    _pretend_cuda(monkeypatch, module, _FakeLib(rc=1))
+    plain = _pretend_cuda(monkeypatch, mlp_kernel, _FakeLib(rc=1))
+    for mod in (module, mlp_kernel):
+        for name in ("backward_warp_plain", "mlp_embed_plain", "chain_plain",
+                     "projection_loss_plain"):
+            if hasattr(mod, name):
+                monkeypatch.setattr(mod, name, plain)
     with pytest.raises(RuntimeError, match="CUDA error 1"):
-        call()
+        _launch(module).backward()
 
 
 def test_kernel_rejects_non_float32(monkeypatch):
@@ -119,3 +210,22 @@ def test_kernel_rejects_non_float32(monkeypatch):
     with pytest.raises(TypeError, match="float32"):
         warp_kernel.warp_forward_cuda(torch.zeros(1, 2, 2, 4, dtype=torch.float64),
                                       torch.zeros(1, 2, 2, 2))
+
+
+@pytest.mark.parametrize("module", [mlp_kernel, chain_kernel, loss_kernel])
+def test_other_kernels_reject_non_float32(monkeypatch, module):
+    for mod in (module, mlp_kernel):
+        _pretend_cuda(monkeypatch, mod, _FakeLib())
+    f64 = torch.float64
+    with pytest.raises(TypeError, match="float32"):
+        if module is mlp_kernel:
+            module.mlp_forward_cuda(torch.zeros(2, 3, dtype=f64),
+                                    torch.zeros(2, 1), torch.zeros(7, 132),
+                                    [torch.zeros(3, 132)], [torch.zeros(3)])
+        elif module is chain_kernel:
+            pts, ts, dt, ws, bs = _chain_args()[:5]
+            module.chain_backward_cuda(
+                pts.double(), ts, dt, torch.zeros(7, 132), ws, bs,
+                torch.zeros(1, 6, 3), *(torch.zeros(6, 3),) * 3, 2, 2, 100.0)
+        else:
+            module.loss_forward_cuda(_loss_args(dtype=f64), 0)
