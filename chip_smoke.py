@@ -7,13 +7,15 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    one nvcc per library, all at once, and prints the card's name and power
    limit.
 2. Holds every kernel against its plain PyTorch version on the card, at the
-   train step's shapes, and times both: the warp (A) at 224x384 with 4
+   main paths' shapes, and times both: the warp (A) at 224x384 with 4
    channels (the depth warp) and 3 (the fused loss's point warp), the
    embedded MLP (B) at 224x384; the Euler-chain backward (C) at 86,016
    points for (n_steps, n_evals) = (1, 2), (2, 2), (4, 4) and (8, 8), the
    chains of gaps 1, 2, 4 and 8; the projection-loss forward and backward
    (D) at 224x384 and 320x576 in the use_disp, MiDaS, warm-up and main
-   configurations.
+   configurations; the RAFT correlation lookup at 288x512 (B = 2, a 36x64
+   grid, four levels, r = 4); fused_mlp forward and backward at 86,016
+   points, 132 -> 256 -> 256 x4 -> 3 (on no path, as in the JAX package).
 3. Drives the flagship configuration through the trainer's entry
    (``dynamic_video_depth_tpu_torch.train``, ``--midas --device cuda``, the
    fused paths on by default): MiDaS at full width with the fixture's biased
@@ -27,7 +29,17 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    off (``--use_pallas_sf_chain off --use_pallas_loss off``): kernels A and
    B per evaluation, over gaps 1 and 2, with the same checks and the
    inference output.
-5. Runs a warm-up and a main step of the hourglass slice on a small input
+5. Preprocesses a synthetic raw track (8 frames at 448x768, in memory)
+   through stages 1-3: MiDaS depth and calibration, RAFT at 288x512 with 20
+   iterations over gaps 1, 2 and 4 (the lookup kernel on every iteration,
+   only at the variant phase 2 checked), the packing; checks every artifact,
+   loads every packed pair and takes one hourglass train step on one; holds
+   stage 2's post-processing on the card against the CPU on flows of a
+   known shift at full size (masks neither all 0 nor all 1); times the
+   stages and profiles one RAFT call.
+6. Runs RAFT at 64x96 with 3 iterations on the card and on the CPU from the
+   same weights and compares the flows.
+7. Runs a warm-up and a main step of the hourglass slice on a small input
    on the card (fused paths) and on the CPU (plain, unfused) and compares
    the losses.
 
@@ -39,6 +51,7 @@ imports nothing of JAX.
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import os
@@ -46,6 +59,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -53,16 +67,18 @@ H, W = 224, 384
 N_PTS = H * W
 WIDE = (320, 576)
 # tolerances: max |kernel - plain| / max |plain| per tensor, and for the
-# four sums of the loss forward |kernel - plain| / |plain| per sum (see
-# PERF.md for the readings)
+# four sums of the loss forward |kernel - plain| / |plain| per sum (PERF.md
+# section 6 gives each kernel's reading on the card beside its tolerance)
 TOL = {"warp_fwd": 1e-6, "warp_bwd": 1e-5, "mlp_fwd": 1e-4, "mlp_bwd": 1e-5,
        "chain_fwd": 1e-5, "chain_bwd": 1e-5, "loss_fwd": 1e-5,
-       "loss_bwd": 1e-5}
+       "loss_bwd": 1e-5, "dense_fwd": 1e-4, "dense_bwd": 1e-5,
+       "corr_lookup": 1e-6}
 CHAINS = ((1, 2), (2, 2), (4, 4), (8, 8))  # (n_steps, n_evals) of gaps 1-8
 SOURCE = {"warp_fwd": "warp.cu", "warp_bwd": "warp.cu",
           "mlp_fwd": "mlp_embed.cu", "mlp_bwd": "mlp_embed.cu",
           "chain_bwd": "mlp_chain.cu", "loss_fwd": "projection_loss.cu",
-          "loss_bwd": "projection_loss.cu"}
+          "loss_bwd": "projection_loss.cu", "dense_fwd": "mlp_embed.cu",
+          "dense_bwd": "mlp_embed.cu", "corr_lookup": "corr_lookup.cu"}
 PALLAS = "dynamic_video_depth_tpu/ops/pallas/"
 REPLACES = {"warp_fwd": PALLAS + "warp_kernel.py:257",
             "warp_bwd": PALLAS + "warp_kernel.py:295",
@@ -70,10 +86,22 @@ REPLACES = {"warp_fwd": PALLAS + "warp_kernel.py:257",
             "mlp_bwd": PALLAS + "mlp_kernel.py:405",
             "chain_bwd": PALLAS + "mlp_kernel.py:772",
             "loss_fwd": PALLAS + "loss_kernel.py:317",
-            "loss_bwd": PALLAS + "loss_kernel.py:353"}
-# kernels each trainer path must launch
+            "loss_bwd": PALLAS + "loss_kernel.py:353",
+            "dense_fwd": PALLAS + "mlp_kernel.py:134",
+            "dense_bwd": PALLAS + "mlp_kernel.py:184",
+            "corr_lookup": PALLAS + "correlation.py:157"}
+# kernels each path must launch; fused_mlp (dense_*) is on no path, as in
+# the JAX package, and is held in phase 2 only
 HOURGLASS_KERNELS = ("warp_fwd", "warp_bwd", "mlp_fwd", "mlp_bwd")
-MIDAS_KERNELS = tuple(SOURCE)
+MIDAS_KERNELS = HOURGLASS_KERNELS + ("chain_bwd", "loss_fwd", "loss_bwd")
+PREPROCESS_KERNELS = ("corr_lookup",)
+# RAFT at 288x512: a 36x64 grid at 1/8, four levels, radius 4; both
+# directions of one pair in one batch
+RAFT_GRID = (36, 64)
+RAFT_LEVELS, RAFT_RADIUS = 4, 4
+# the synthetic raw track of the preprocessing phase (multiples of 32 for
+# MiDaS at the raw resolution)
+RAW_FRAMES, RAW_HW, PRE_GAPS = 8, (448, 768), (1, 2, 4)
 
 
 def fail(msg: str) -> None:
@@ -372,6 +400,67 @@ def phase_kernel_d(dev, results: dict) -> None:
                        args, flags, cot)), time_ms(plain_bwd), what)
 
 
+def phase_kernels_new(dev, results: dict) -> None:
+    """The correlation lookup at RAFT's 288x512 shapes (B = 2, a 36x64
+    grid, four levels, r = 4) with coordinates past every border, and
+    fused_mlp forward and backward at N = 86,016 with the canonical widths
+    132 -> 256 -> 256 x4 -> 3, each against its plain version (the backward
+    against autograd of the plain stack)."""
+    import torch
+
+    from dynamic_video_depth_tpu_torch.ops.cuda import corr_kernel, mlp_kernel
+
+    gen = torch.Generator().manual_seed(3)
+    h, w = RAFT_GRID
+    pyramid, hl, wl = [], h, w
+    for _ in range(RAFT_LEVELS):
+        pyramid.append(torch.randn(2, h * w, hl, wl, generator=gen).to(dev))
+        hl, wl = hl // 2, wl // 2
+    coords = torch.rand(2, h, w, 2, generator=gen) * torch.tensor(
+        [1.4 * w, 1.4 * h]) - torch.tensor([0.2 * w, 0.2 * h])
+    # integer positions and the far corner take the clamped taps
+    coords[0, 0, :3] = torch.tensor([[0.0, 0.0], [w - 1.0, h - 1.0],
+                                     [5.0, 7.0]])
+    args = (pyramid, coords.to(dev), RAFT_RADIUS)
+    out = corr_kernel.lookup_forward_cuda(*args)
+    ref = corr_kernel.lookup_correlation_plain(*args)
+    torch.cuda.synchronize()
+    report(results, "corr_lookup", rel_err(out, ref),
+           time_ms(lambda: corr_kernel.lookup_forward_cuda(*args)),
+           time_ms(lambda: corr_kernel.lookup_correlation_plain(*args)),
+           f" [2,{h},{w}] L={RAFT_LEVELS} r={RAFT_RADIUS}",
+           (RAFT_RADIUS, RAFT_LEVELS))
+
+    dims = [132] + [256] * 5 + [3]
+    ws = [(torch.randn(b, a, generator=gen) * (2.0 / a) ** 0.5).to(dev)
+          for a, b in zip(dims[:-1], dims[1:])]
+    bs = [(0.01 * torch.randn(b, generator=gen)).to(dev) for b in dims[1:]]
+    feat = torch.randn(N_PTS, dims[0], generator=gen).to(dev)
+    g = torch.randn(N_PTS, dims[-1], generator=gen).to(dev)
+    fwd_k = mlp_kernel.dense_forward_cuda(feat, ws, bs)
+    dfeat_k, dws_k, dbs_k = mlp_kernel.dense_backward_cuda(feat, ws, bs, g)
+
+    def plain_grads():
+        leaves = [t.clone().requires_grad_(True) for t in (feat, *ws, *bs)]
+        out = mlp_kernel.fused_mlp_plain(leaves[0], leaves[1:7], leaves[7:])
+        (out * g).sum().backward()
+        return [t.grad for t in leaves]
+
+    grads_p = plain_grads()
+    torch.cuda.synchronize()
+    report(results, "dense_fwd",
+           rel_err(fwd_k, mlp_kernel.fused_mlp_plain(feat, ws, bs)),
+           time_ms(lambda: mlp_kernel.dense_forward_cuda(feat, ws, bs)),
+           time_ms(lambda: mlp_kernel.fused_mlp_plain(feat, ws, bs)),
+           f" [{N_PTS},132]")
+    report(results, "dense_bwd",
+           max((rel_err(k, p) for k, p in
+                zip([dfeat_k, *dws_k, *dbs_k], grads_p)), key=lambda e: e[1]),
+           time_ms(lambda: mlp_kernel.dense_backward_cuda(feat, ws, bs, g),
+                   reps=10),
+           time_ms(plain_grads, reps=10), f" [{N_PTS},132]")
+
+
 def phase_trainer(dev, workdir: str, label: str, extra: list, gaps: tuple,
                   n_frames: int, kernels: tuple, midas: bool = False):
     """A warm-up epoch and a main epoch through the trainer's entry on a
@@ -477,6 +566,245 @@ def phase_trainer(dev, workdir: str, label: str, extra: list, gaps: tuple,
     return counts, variants
 
 
+FRAME_KEYS = ("img", "pose_c2w", "intrinsics", "depth_pred", "depth_mvs",
+              "img_orig", "motion_seg")
+
+
+def shifted_flows(h: int, w: int):
+    """RAFT-resolution flows ``[h, w, 2]`` on the CPU moving 4.6 px right
+    and back, but inconsistent in one block (the backward flow there moves
+    3 px right): both masks hold occluded pixels (the block, and the
+    columns whose target leaves the frame) and visible ones."""
+    import torch
+
+    f12 = torch.zeros(h, w, 2)
+    f12[..., 0] = 4.6
+    f21 = -f12
+    f21[h // 4:h // 2, w // 3:w // 2, 0] = 3.0
+    return f12, f21
+
+
+def phase_preprocess(dev, workdir: str, card: str, results: dict):
+    """Stages 1-3 through the port's preprocessing functions at full width
+    on a synthetic raw track in memory (8 frames at 448x768, a camera path,
+    triangulated points in front of the camera, object masks): MiDaS with
+    the biased output conv (depth near 50), RAFT at 288x512 with 20
+    iterations over gaps 1, 2 and 4, the packing. Checks every artifact and
+    one hourglass train step on a packed pair; times the stages, a steady
+    RAFT call and its profile. Returns the launch counts and variants of
+    stages 1-3."""
+    import numpy as np
+    import torch
+
+    from dynamic_video_depth_tpu_torch.data.batches import to_device
+    from dynamic_video_depth_tpu_torch.data.davis_sequence import Dataset
+    from dynamic_video_depth_tpu_torch.data.synthetic import make_raw_davis
+    from dynamic_video_depth_tpu_torch.ops import cuda as kernels_mod
+    from dynamic_video_depth_tpu_torch.preprocess import flows, frames, pairs
+    from dynamic_video_depth_tpu_torch.runtime.weights import (
+        bias_midas_output)
+    from dynamic_video_depth_tpu_torch.train import (
+        LossConfig, SceneFlowMotionFieldStep, TrainStepConfig)
+
+    root, track = os.path.join(workdir, "davis_processed"), "smoke_raw"
+    frame_dir = os.path.join(root, "frames_midas", track)
+    flow_dir = os.path.join(root, "flow_pairs", track)
+    seq_dir = os.path.join(root, "sequences_select_pairs_midas", track, "001")
+    imgs, matrices, K, points, masks = make_raw_davis(RAW_FRAMES, *RAW_HW)
+    depth_fn = frames.make_midas_depth_fn(device=dev)
+    bias_midas_output(depth_fn.net)
+    n_pairs = sum(RAW_FRAMES - g for g in PRE_GAPS)
+
+    kernels_mod.reset_launches()
+    t0 = time.perf_counter()
+    scale = frames.process_davis_track(imgs, matrices, K, points, masks,
+                                       frame_dir, depth_fn)
+    t1 = time.perf_counter()
+    flows.process_track(frame_dir, flow_dir, gaps=PRE_GAPS, device=dev)
+    t2 = time.perf_counter()
+    pairs.pack_track(frame_dir, flow_dir, seq_dir, gaps=PRE_GAPS)
+    t3 = time.perf_counter()
+    counts = kernels_mod.launch_counts()
+    variants = kernels_mod.launch_variants()
+
+    if counts["corr_lookup"] != flows.RAFT_ITERS * n_pairs:
+        fail(f"preprocess: {counts['corr_lookup']} lookups for {n_pairs} "
+             f"RAFT calls of {flows.RAFT_ITERS} iterations")
+    others = {k: v for k, v in counts.items()
+              if v and k not in PREPROCESS_KERNELS}
+    if others:
+        fail(f"preprocess: launched kernels of another path: {others}")
+    wh = frames.working_resolution(*RAW_HW)  # 256x384 for 448x768
+    for i in range(RAW_FRAMES):
+        with np.load(os.path.join(frame_dir, f"frame_{i:05d}.npz")) as f:
+            d = dict(f)
+        shapes = {"img": wh + (3,), "pose_c2w": (4, 4), "intrinsics": (3, 3),
+                  "depth_pred": wh, "depth_mvs": wh,
+                  "img_orig": RAW_HW + (3,), "motion_seg": wh}
+        if sorted(d) != sorted(FRAME_KEYS) or any(
+                d[k].shape != shapes[k] or not np.isfinite(d[k]).all()
+                for k in FRAME_KEYS):
+            fail(f"preprocess: frame {i} has wrong keys, shapes or "
+                 f"non-finite values: { {k: v.shape for k, v in d.items()} }")
+        if not set(np.unique(d["motion_seg"])) <= {0.0, 1.0}:
+            fail(f"preprocess: frame {i}'s motion_seg is not 0/1")
+    flow_files = sorted(os.listdir(flow_dir))
+    if len(flow_files) != n_pairs:
+        fail(f"preprocess: {len(flow_files)} flow pairs, want {n_pairs}")
+    occluded = []
+    for name in flow_files:
+        with np.load(os.path.join(flow_dir, name)) as f:
+            d = dict(f)
+        for k in ("flow_1_2", "flow_2_1"):
+            if d[k].shape != wh + (2,) or not np.isfinite(d[k]).all():
+                fail(f"preprocess: {name}:{k} is {d[k].shape} or not finite")
+        for k in ("mask_1", "mask_2"):
+            if d[k].shape != wh or d[k].dtype != np.uint8 or \
+                    not set(np.unique(d[k])) <= {0, 1}:
+                fail(f"preprocess: {name}:{k} is not a 0/1 uint8 mask")
+            occluded.append(float(d[k].mean()))
+    opt = argparse.Namespace(track_id=track, gaps=",".join(map(str, PRE_GAPS)),
+                             subsample=False, data_root=root)
+    ds = Dataset(opt, mode="train")
+    want = sum(RAW_FRAMES - 1 - g for g in PRE_GAPS)
+    if len(ds) != want:
+        fail(f"preprocess: {len(ds)} packed pairs, want {want}")
+    for i in range(len(ds)):
+        b = ds[i]
+        if b["img_1"].shape != (1,) + wh + (3,) or \
+                not np.isfinite(b["flow_1_2"]).all():
+            fail(f"preprocess: packed pair {i} does not load as a batch")
+    step = SceneFlowMotionFieldStep(TrainStepConfig(
+        lr=1e-6, scene_lr_mul=1000.0, loss=LossConfig(
+            flow_mul=1.0, disp_mul=1.0, acc_mul=1.0, use_disp=True)),
+        device=dev)
+    logs = step.train_step(to_device(ds[0], dev), ds[0]["steps"], False)
+    if not all(math.isfinite(float(v)) for v in logs.values()):
+        fail(f"preprocess: the train step on a packed pair: {logs}")
+
+    # random RAFT weights occlude nearly every pixel, so stage 2's masks
+    # above are all ones; post-processing of a known shift at full size
+    # gives masks with both values, on the card as on the CPU
+    f12, f21 = shifted_flows(*flows.RAFT_RES)
+    post_cpu = flows.postprocess_pair(f12, f21, wh)
+    post = flows.postprocess_pair(f12.to(dev), f21.to(dev), wh)
+    for k, v in post.items():
+        if v.dtype != post_cpu[k].dtype or v.shape != post_cpu[k].shape:
+            fail(f"preprocess: post-processing {k} on the card is "
+                 f"{v.dtype} {v.shape}")
+    flow_err = max(float(np.abs(post[k] - post_cpu[k]).max())
+                   for k in ("flow_1_2", "flow_2_1"))
+    shares = [float(post[k].mean()) for k in ("mask_1", "mask_2")]
+    flips = max(int((post[k] != post_cpu[k]).sum())
+                for k in ("mask_1", "mask_2"))
+    if not (flow_err <= 1e-4 and flips == 0 and all(0 < s < 1
+                                                    for s in shares)):
+        fail(f"preprocess: post-processing of a known shift: flow error "
+             f"{flow_err:.3e}, occluded shares {shares}, {flips} mask "
+             f"pixels differ from the CPU")
+    post_walls = []
+    for _ in range(5):
+        t = time.perf_counter()
+        flows.postprocess_pair(f12.to(dev), f21.to(dev), wh)
+        post_walls.append(1e3 * (time.perf_counter() - t))
+    # stage 2 again, with cuDNN's per-shape set-up already done
+    t = time.perf_counter()
+    flows.process_track(frame_dir, flow_dir + "_again", gaps=PRE_GAPS,
+                        device=dev)
+    stage2_again = 1e3 * (time.perf_counter() - t) / n_pairs
+
+    # one RAFT call in the steady state, timed and profiled
+    flow_fn = flows.make_raft_flow_batch_fn(device=dev)
+    with np.load(os.path.join(frame_dir, "frame_00000.npz")) as f:
+        im1 = flows._prep_raft_input(dict(f), dev)[None]
+    with np.load(os.path.join(frame_dir, "frame_00001.npz")) as f:
+        im2 = flows._prep_raft_input(dict(f), dev)[None]
+    flow_fn(im1, im2)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(5):
+        t = time.perf_counter()
+        flow_fn(im1, im2)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t))
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        flow_fn(im1, im2)
+    kernels = sorted(((e.self_device_time_total, e.key)
+                      for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     reverse=True)
+    busy = sum(us for us, _ in kernels)
+    lookup = sum(us for us, key in kernels if "corr_lookup" in key)
+    top = "; ".join(f"{key[:60]} {us / 1e3:.3f} ms" for us, key in kernels[:8])
+
+    print(f"[preprocess] {card}: {RAW_FRAMES} frames {RAW_HW[0]}x"
+          f"{RAW_HW[1]} -> {wh[0]}x{wh[1]}, scale {scale:.4f}; stage 1 "
+          f"{1e3 * (t1 - t0) / RAW_FRAMES:.2f} ms/frame (MiDaS at the raw "
+          f"resolution, batches of 4); stage 2 {1e3 * (t2 - t1) / n_pairs:.2f}"
+          f" ms/pair over {n_pairs} pairs (RAFT {flows.RAFT_RES[0]}x"
+          f"{flows.RAFT_RES[1]}, {flows.RAFT_ITERS} iterations, the first "
+          f"call, the resizes, masks and files included), lookup "
+          f"{results['corr_lookup']['ms']:.4f} ms x {flows.RAFT_ITERS} per "
+          f"call; stage 3 {1e3 * (t3 - t2):.2f} ms for {len(ds)} pairs; "
+          f"occluded share {statistics.mean(occluded):.3f}; launches "
+          f"{counts}; by variant {variants}", flush=True)
+    print(f"[preprocess] {card}: post-processing of one pair on the card "
+          f"(two flow resizes {flows.RAFT_RES[0]}x{flows.RAFT_RES[1]} -> "
+          f"{wh[0]}x{wh[1]}, both masks, the copy to the host) median wall "
+          f"{statistics.median(post_walls):.3f} ms over 5; stage 2 run again "
+          f"{stage2_again:.2f} ms/pair; a known shift: "
+          f"occluded shares {shares[0]:.4f} / {shares[1]:.4f}, flows within "
+          f"{flow_err:.3e} of the CPU, masks equal", flush=True)
+    print(f"[raft] {card}: one call (both directions of a pair, B = 2) "
+          f"median wall {statistics.median(walls):.2f} ms over 5; profiled "
+          f"kernel time {busy / 1e3:.2f} ms in {len(kernels)} kernel names, "
+          f"lookup {lookup / 1e3:.3f} ms; top: {top}", flush=True)
+    return counts, variants
+
+
+def phase_raft_reference(dev) -> None:
+    """RAFT at 64x96 with 3 iterations, the same random weights and
+    randomised batch-norm statistics, on the card (the lookup kernel) and
+    on the CPU (its plain gather): both flows agree to rtol 1e-3 / atol
+    1e-4."""
+    import copy
+
+    import torch
+
+    from dynamic_video_depth_tpu_torch.models.raft import RAFT
+    from dynamic_video_depth_tpu_torch.ops.cuda import corr_kernel
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(7)
+    net = RAFT(generator=gen)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.normal_(0.0, 0.05, generator=gen)
+                m.running_var.uniform_(0.7, 1.3, generator=gen)
+    ims = [255.0 * torch.rand(2, 64, 96, 3, generator=gen) for _ in range(2)]
+    corr_kernel.reset_launches()
+    with torch.no_grad():
+        cpu = net(*ims, iters=3)
+        card = copy.deepcopy(net).to(dev)(*(t.to(dev) for t in ims), iters=3)
+    if corr_kernel.launches["corr_lookup"] != 3:
+        fail(f"RAFT on the card launched the lookup "
+             f"{corr_kernel.launches['corr_lookup']} times, want 3")
+    worst = 0.0
+    for name, c, g in zip(("flow8", "flow_up"), cpu, card):
+        g = g.cpu()
+        excess = ((g - c).abs() - 1e-3 * c.abs()).max().item()
+        worst = max(worst, (g - c).abs().max().item())
+        if excess > 1e-4:
+            fail(f"RAFT {name} on the card disagrees with the CPU: "
+                 f"|diff| - 1e-3 |cpu| up to {excess:.3e}")
+    print(f"[raft] 64x96, 3 iterations: card (kernel) vs CPU (plain) max "
+          f"|diff| {worst:.3e} (tol rtol 1e-3 / atol 1e-4)", flush=True)
+
+
 def phase_small_reference(dev) -> None:
     """The full-width hourglass slice on a small input (32x48) against the
     same steps on the CPU: on the card the fused chain and loss (auto), on
@@ -537,6 +865,7 @@ def main() -> None:
     phase_kernels_ab(dev, results)
     phase_kernel_c(dev, results)
     phase_kernel_d(dev, results)
+    phase_kernels_new(dev, results)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as workdir:
         # 6 frames: 4 gap-1, 3 gap-2 and 1 gap-4 pairs per epoch
@@ -548,6 +877,9 @@ def main() -> None:
             dev, workdir, "hourglass",
             ["--use_pallas_sf_chain", "off", "--use_pallas_loss", "off"],
             (1, 2), 5, HOURGLASS_KERNELS)
+        torch.cuda.empty_cache()
+        pre_counts, pre_variants = phase_preprocess(dev, workdir, card,
+                                                    results)
     if hourglass["chain_bwd"] or hourglass["loss_fwd"]:
         fail(f"the hourglass path with the fused paths off launched kernel "
              f"C or D: {hourglass}")
@@ -555,14 +887,18 @@ def main() -> None:
             and midas_variants.get(("warp_bwd", 3))):
         fail(f"the MiDaS path did not launch the warp at 3 channels: "
              f"{midas_variants}")
-    unchecked = (set(midas_variants) | set(hourglass_variants)) - \
-        results.pop("checked")
+    unchecked = (set(midas_variants) | set(hourglass_variants)
+                 | set(pre_variants)) - results.pop("checked")
     if unchecked:
-        fail(f"the trainer paths launched kernel variants that phase 2 did "
-             f"not check: {sorted(unchecked)}")
+        fail(f"a path launched kernel variants that phase 2 did not check: "
+             f"{sorted(unchecked)}")
+    phase_raft_reference(dev)
     phase_small_reference(dev)
     if "jax" in sys.modules or "dynamic_video_depth_tpu" in sys.modules:
         fail("JAX was imported")
+    # launches on the path that runs each kernel: the MiDaS trainer for
+    # A-D, preprocessing for the lookup; fused_mlp is on no path (0)
+    counts["corr_lookup"] = pre_counts["corr_lookup"]
     kernels = [{
         "name": name, "route": "cuda",
         "source": f"dynamic_video_depth_tpu_torch/csrc/{SOURCE[name]}",

@@ -36,6 +36,12 @@
 // The tile code (GEMM tiles, forward recompute, layer backward, embedding
 // gradient, dW partials and reduce) is shared with the chain backward
 // (mlp_chain.cu) through mlp_tile.cuh.
+//
+// The dense stack without the embedding (dvd_dense_fwd, dvd_dense_bwd)
+// replaces mlp_kernel.py::fused_mlp (forward, _fwd_kernel) and
+// _fused_mlp_bwd (_bwd_kernel): the same tiles and the same deterministic
+// weight-gradient reduce, with the features read from feat [N, C0] and
+// their gradient written to dfeat [N, C0].
 
 #include "mlp_tile.cuh"
 
@@ -120,15 +126,62 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+// The dense stack alone (fused_mlp): the same tiles with the features read
+// from feat [N, C0] instead of computed from the embedding.
+__device__ void load_tile(const float* __restrict__ feat, int C0, int p0,
+                          int N, float* Xs) {
+  for (int e = threadIdx.x; e < kTile * C0; e += kThreads) {
+    int p = e / C0, c = e - p * C0;
+    Xs[p * kLdx + c] = p0 + p < N ? feat[(int64_t)(p0 + p) * C0 + c] : 0.0f;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+    dense_fwd(const float* __restrict__ feat, Mlp m, float* __restrict__ out,
+              int N) {
+  extern __shared__ float smem[];
+  float* Xs = smem;
+  float* Ws = smem + kTile * kLdx;
+  const int p0 = blockIdx.x * kTile;
+  load_tile(feat, m.din[0], p0, N, Xs);
+  float acc[4][16];
+  for (int l = 0; l < m.L; ++l) {
+    const bool last = l == m.L - 1;
+    gemm_tile<false>(Xs, m.W[l], m.din[l], m.dout[l], Ws, acc);
+    bias_act(acc, m.b[l], m.dout[l], !last);
+    __syncthreads();
+    store_tile(acc, m.dout[l], last ? nullptr : Xs, last ? out : nullptr, p0,
+               N);
+  }
+}
+
+// Per 64-point tile: recompute, store A_l and dZ_l for the weight
+// gradients, and write dfeat (the gradient left in Xs by backward_store).
+__global__ void __launch_bounds__(kThreads, 2)
+    dense_bwd_points(const float* __restrict__ feat, Mlp m, Scratch s,
+                     const float* __restrict__ g, float* __restrict__ dfeat,
+                     int N) {
+  extern __shared__ float smem[];
+  float* Xs = smem;
+  float* Ws = smem + kTile * kLdx;
+  const int p0 = blockIdx.x * kTile;
+  const int C0 = m.din[0];
+  load_tile(feat, C0, p0, N, Xs);
+  forward_store(m, s, Xs, Ws, p0, N);
+  load_tile(g, m.dout[m.L - 1], p0, N, Xs);
+  backward_store(m, s, Xs, Ws, p0, N);
+  for (int e = threadIdx.x; e < kTile * C0; e += kThreads) {
+    int p = e / C0, c = e - p * C0;
+    if (p0 + p < N) dfeat[(int64_t)(p0 + p) * C0 + c] = Xs[p * kLdx + c];
+  }
+}
+
 // The point kernels take more than the default 48 KB of dynamic shared
-// memory; the attribute is per device, so it is set before every launch.
-cudaError_t allow_smem() {
-  cudaError_t e = cudaFuncSetAttribute(
-      mlp_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kPointSmem);
-  if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(mlp_bwd_points,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)kPointSmem);
+// memory; the attribute is per device, so each launch sets it for the
+// kernel it launches.
+cudaError_t allow_smem(const void* kernel) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kPointSmem);
 }
 
 }  // namespace
@@ -142,7 +195,7 @@ int dvd_mlp_fwd(const float* pts, const float* ts, const float* consts,
                 int L, float* out, int N, void* stream) {
   Mlp m = make_mlp(W, b, dims, L);
   if (!valid(m, dims[0])) return (int)cudaErrorInvalidValue;
-  cudaError_t e = allow_smem();
+  cudaError_t e = allow_smem((const void*)mlp_fwd);
   if (e != cudaSuccess) return (int)e;
   if (N == 0) return (int)cudaGetLastError();
   const unsigned grid = (unsigned)((N + kTile - 1) / kTile);
@@ -161,7 +214,7 @@ int dvd_mlp_bwd(const float* pts, const float* ts, const float* consts,
                 void* const* dZ, float* P, int S, int N, void* stream) {
   Mlp m = make_mlp(W, b, dims, L);
   if (!valid(m, dims[0]) || S < 1) return (int)cudaErrorInvalidValue;
-  cudaError_t e = allow_smem();
+  cudaError_t e = allow_smem((const void*)mlp_bwd_points);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
   if (N == 0) return (int)zero_grads(dims, L, dW, db, st);
@@ -169,6 +222,43 @@ int dvd_mlp_bwd(const float* pts, const float* ts, const float* consts,
   const unsigned grid = (unsigned)((N + kTile - 1) / kTile);
   mlp_bwd_points<<<grid, kThreads, kPointSmem, st>>>(
       pts, ts, consts, dims[0], m, s, g, dpts, dts, N);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return (int)weight_grads(m, s, N, S, P, dW, db, 0, st);
+}
+
+// out [N, dims[L]] = MLP(feat [N, dims[0]]), the layers as dvd_mlp_fwd.
+int dvd_dense_fwd(const float* feat, const void* const* W,
+                  const void* const* b, const int* dims, int L, float* out,
+                  int N, void* stream) {
+  Mlp m = make_mlp(W, b, dims, L);
+  if (!valid(m, dims[0])) return (int)cudaErrorInvalidValue;
+  cudaError_t e = allow_smem((const void*)dense_fwd);
+  if (e != cudaSuccess) return (int)e;
+  if (N == 0) return (int)cudaGetLastError();
+  const unsigned grid = (unsigned)((N + kTile - 1) / kTile);
+  dense_fwd<<<grid, kThreads, kPointSmem, (cudaStream_t)stream>>>(feat, m,
+                                                                  out, N);
+  return (int)cudaGetLastError();
+}
+
+// Gradients of sum(g * out): dfeat [N, dims[0]], dW[l], db[l]; the scratch
+// as dvd_mlp_bwd.
+int dvd_dense_bwd(const float* feat, const void* const* W,
+                  const void* const* b, const int* dims, int L,
+                  const float* g, float* dfeat, void* const* dW,
+                  void* const* db, void* const* A, void* const* dZ, float* P,
+                  int S, int N, void* stream) {
+  Mlp m = make_mlp(W, b, dims, L);
+  if (!valid(m, dims[0]) || S < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t e = allow_smem((const void*)dense_bwd_points);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (N == 0) return (int)zero_grads(dims, L, dW, db, st);
+  Scratch s = make_scratch(A, dZ, L);
+  const unsigned grid = (unsigned)((N + kTile - 1) / kTile);
+  dense_bwd_points<<<grid, kThreads, kPointSmem, st>>>(feat, m, s, g, dfeat,
+                                                       N);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   return (int)weight_grads(m, s, N, S, P, dW, db, 0, st);

@@ -203,3 +203,35 @@ def make_track(
             )
             cnt += 1
     return frame_dir, seq_dir
+
+
+def make_raw_davis(n_frames: int = 8, h: int = 448, w: int = 768,
+                   seed: int = 0, n_points: int = 4000):
+    """A raw DAVIS track in memory, as ``preprocess/run_davis.py::
+    load_davis_track`` returns it: ``(imgs, matrices, K, points_3d,
+    masks)``. Frames ``[h, w, 3]`` in [0, 1] of a texture that drifts to the
+    right; camera matrices (cam-to-world, graphics axes: the camera looks
+    down -z) of a camera moving slowly forward; triangulated points 3-8 m in
+    front of the first camera, inside its view; a moving-object disc mask
+    per frame."""
+    rng = np.random.RandomState(seed)
+    texture = _smooth_noise(rng, h, w, 16)
+    shade = _smooth_noise(rng, h, w, 32)
+    f = 0.9 * w
+    K = np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]], np.float64)
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    imgs, matrices, masks = [], [], []
+    for i in range(n_frames):
+        tex = np.roll(texture, 2 * i, axis=1)
+        imgs.append(np.stack([tex, 0.5 * (tex + shade), 1.0 - tex],
+                             -1).astype(np.float32))
+        m = np.eye(4)
+        m[:3, 3] = [0.01 * i, 0.002 * i, -0.02 * i]
+        matrices.append(m)
+        cx, cy, r = w * (0.3 + 0.02 * i), h * 0.5, 0.12 * min(h, w)
+        masks.append(((xx - cx) ** 2 + (yy - cy) ** 2 < r * r)
+                     .astype(np.float32))
+    d = 3.0 + 5.0 * rng.rand(n_points)
+    u, v = rng.rand(n_points) * w, rng.rand(n_points) * h
+    points = np.stack([(u - w / 2) / f * d, -(v - h / 2) / f * d, -d], -1)
+    return imgs, np.stack(matrices), K, points, masks

@@ -2,9 +2,10 @@
 and launch counters. Importing this package builds nothing: a kernel is
 compiled at its first launch on a CUDA tensor (``build.py``)."""
 
-from . import chain_kernel, loss_kernel, mlp_kernel, warp_kernel
+from . import chain_kernel, corr_kernel, loss_kernel, mlp_kernel, warp_kernel
 
-KERNEL_MODULES = (warp_kernel, mlp_kernel, chain_kernel, loss_kernel)
+KERNEL_MODULES = (warp_kernel, mlp_kernel, chain_kernel, loss_kernel,
+                  corr_kernel)
 
 
 def reset_launches() -> None:
@@ -21,5 +22,7 @@ def launch_counts() -> dict:
 
 def launch_variants() -> dict:
     """Launches since the last reset by the shape that picks a kernel's
-    branch: the warp's channel count, the chain's (n_steps, n_evals)."""
-    return dict(warp_kernel.variants + chain_kernel.variants)
+    branch: the warp's channel count, the chain's (n_steps, n_evals), the
+    lookup's (radius, levels)."""
+    return dict(warp_kernel.variants + chain_kernel.variants
+                + corr_kernel.variants)

@@ -1,14 +1,22 @@
 """Image resizing (counterpart of ``dynamic_video_depth_tpu/ops/resize.py``).
 
-The three interpolation configurations of the reference, on channel-last
-``[B, H, W, C]`` tensors, through ``F.interpolate`` (the JAX package writes
-them as separable interpolation matrices for the TPU's matrix unit; they are
-not kernels):
+The interpolation configurations of the reference, on channel-last
+``[B, H, W, C]`` tensors, through ``F.interpolate`` with its default
+``antialias=False`` (the JAX package writes them as separable interpolation
+matrices for the TPU's matrix unit, which have no antialias; they are not
+kernels). The MiDaS nets use three:
 - bilinear, align_corners=True  (the MiDaS FeatureFusionBlock upsample);
 - bilinear, align_corners=False (the MiDaS output head);
 - bicubic, align_corners=True   (the optional MiDaS input resize).
-torch's bicubic uses a = -0.75 and clamps its taps to the border, which is
-``_cubic_matrix`` of the JAX package (held against it in the tests).
+Preprocessing adds two:
+- bicubic, align_corners=False as a downscale (stage 2's flows, 288x512 to
+  the working resolution);
+- bilinear, align_corners=False as a large downscale (raw frames to the
+  working resolution in stage 1 and to 288x512 for RAFT in stage 2).
+torch's bicubic uses a = -0.75, does not clamp the continuous source index
+and clamps its taps to the border, which is ``_cubic_matrix`` of the JAX
+package; its bilinear clamps the source index into the input, which is
+``_linear_matrix`` (both held against them in the tests).
 """
 
 from __future__ import annotations

@@ -14,11 +14,14 @@ dicts of numpy arrays, to a torch state dict of the port and back:
 
 Neither direction imports jax: the caller converts arrays to numpy.
 
-``bias_midas_output`` is a fixture helper for random-weight MiDaS runs.
+``load_raft_checkpoint`` and ``load_midas_checkpoint`` read the pretrained
+torch files of preprocessing. ``bias_midas_output`` is a fixture helper for
+random-weight MiDaS runs.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
@@ -140,4 +143,58 @@ def bias_midas_output(net: nn.Module, bias: float = 200.0) -> nn.Module:
     pretrained checkpoint puts the depth in range)."""
     with torch.no_grad():
         net.state_dict()[MIDAS_OUTPUT_BIAS].fill_(bias)
+    return net
+
+
+# The pretrained MiDaS checkpoint, where the JAX package looks for it
+# (train/scene_flow_motion_field.py); preprocessing stage 1 loads it when
+# the file exists and otherwise runs random weights.
+MIDAS_PRETRAIN_PATH = os.environ.get(
+    "DVD_MIDAS_CKPT", "./pretrained_depth_ckpt/midas_cpkt.pt")
+
+
+def _load_torch_file(path: str) -> Dict[str, torch.Tensor]:
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if "optimizer" in state and "model" in state:  # the MiDaS wrapper
+        state = state["model"]
+    if isinstance(state.get("state_dict"), dict):
+        state = state["state_dict"]
+    return {k: v for k, v in state.items() if isinstance(v, torch.Tensor)}
+
+
+def load_midas_checkpoint(net: nn.Module, path: str) -> nn.Module:
+    """Load a MiDaS torch checkpoint by the port's keys, as the JAX
+    package's ``port_torch_variables``: every parameter and buffer of ``net``
+    (batch-norm step counters aside) must be in the file; keys the net does
+    not have are left unused."""
+    sd = _load_torch_file(path)
+    own = net.state_dict()
+    missing = [k for k in own
+               if k not in sd and not k.endswith("num_batches_tracked")]
+    if missing:
+        raise KeyError(f"MiDaS checkpoint {path} lacks {missing[:5]}")
+    net.load_state_dict({k: sd.get(k, v) for k, v in own.items()},
+                        strict=True)
+    return net
+
+
+def load_raft_checkpoint(net: nn.Module, path: str) -> nn.Module:
+    """Load a RAFT checkpoint in the official layout (saved from
+    ``nn.DataParallel``: every key prefixed ``module.``) with
+    ``strict=True``. A key the port does not consume raises, apart from
+    the batch norms' ``num_batches_tracked`` (the JAX package's
+    ``preprocess/flows.py`` rule)."""
+    sd = {k.removeprefix("module."): v
+          for k, v in _load_torch_file(path).items()}
+    own = net.state_dict()
+    leftovers = [k for k in sd
+                 if k not in own and not k.endswith("num_batches_tracked")]
+    if leftovers:
+        raise KeyError(f"RAFT checkpoint keys not consumed by the port "
+                       f"(layout drift?): {leftovers[:5]}")
+    for key, value in own.items():
+        if key.endswith("num_batches_tracked"):
+            sd.setdefault(key, value)
+    net.load_state_dict({k: v for k, v in sd.items() if k in own},
+                        strict=True)  # raises on a key the file lacks
     return net

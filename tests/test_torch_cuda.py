@@ -9,14 +9,17 @@ Tolerances are relative to the largest reference value: the warp forward
 differs from its plain version only by FMA contraction; the warp backward
 adds in atomic order; the MLP and the chain sum over points in another
 order; the loss kernel is built without FMA contraction, so per pixel it
-matches its plain version and only the order of the global sums differs.
+matches its plain version and only the order of the global sums differs;
+the correlation lookup differs from its plain gather by FMA contraction
+only.
 """
 
 import pytest
 import torch
 
-from dynamic_video_depth_tpu_torch.ops.cuda import (chain_kernel, loss_kernel,
-                                                  mlp_kernel, warp_kernel)
+from dynamic_video_depth_tpu_torch.ops.cuda import (chain_kernel, corr_kernel,
+                                                  loss_kernel, mlp_kernel,
+                                                  warp_kernel)
 
 pytestmark = pytest.mark.cuda
 
@@ -74,11 +77,59 @@ def test_mlp_kernel_matches_plain(dev, n, width, layers, nfx, nft):
     mlp_kernel.reset_launches()
     got = run(mlp_kernel.mlp_embed)
     want = run(mlp_kernel.mlp_embed_plain)
-    assert mlp_kernel.launches == {"mlp_fwd": 1, "mlp_bwd": 1}
+    assert mlp_kernel.launches == {"mlp_fwd": 1, "mlp_bwd": 1,
+                                   "dense_fwd": 0, "dense_bwd": 0}
     assert _rel(got[0], want[0]) <= 1e-4
     for a, b in zip(got[1:], want[1:]):
         assert _rel(a, b) <= 1e-3
 
+
+@pytest.mark.parametrize("n,dims", [
+    (86016, [132, 256, 256, 256, 256, 256, 3]), (777, [20, 32, 32, 3])])
+def test_fused_mlp_kernel_matches_plain(dev, n, dims):
+    gen = torch.Generator().manual_seed(n)
+    ws = [(torch.randn(b, a, generator=gen) * (2.0 / a) ** 0.5).to(dev)
+          for a, b in zip(dims[:-1], dims[1:])]
+    bs = [(0.01 * torch.randn(b, generator=gen)).to(dev) for b in dims[1:]]
+    feat = torch.randn(n, dims[0], generator=gen).to(dev)
+    g = torch.randn(n, dims[-1], generator=gen).to(dev)
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_(True) for t in (feat, *ws, *bs)]
+        nl = len(ws)
+        out = fn(leaves[0], leaves[1:1 + nl], leaves[1 + nl:])
+        (out * g).sum().backward()
+        return [out.detach()] + [t.grad for t in leaves]
+
+    mlp_kernel.reset_launches()
+    got = run(mlp_kernel.fused_mlp)
+    assert mlp_kernel.launches == {"mlp_fwd": 0, "mlp_bwd": 0,
+                                   "dense_fwd": 1, "dense_bwd": 1}
+    want = run(mlp_kernel.fused_mlp_plain)
+    assert _rel(got[0], want[0]) <= 1e-4
+    for a, b in zip(got[1:], want[1:]):
+        assert _rel(a, b) <= 1e-5
+
+
+@pytest.mark.parametrize("b,h,w,radius,levels", [
+    (2, 36, 64, 4, 4), (1, 16, 24, 3, 2)])
+def test_corr_lookup_kernel_matches_plain(dev, b, h, w, radius, levels):
+    """At RAFT's 288x512 grid (36x64, four levels, r = 4) and a small one,
+    with coordinates past every border."""
+    gen = torch.Generator().manual_seed(h)
+    pyr, hl, wl = [], h, w
+    for _ in range(levels):
+        pyr.append(torch.randn(b, h * w, hl, wl, generator=gen).to(dev))
+        hl, wl = hl // 2, wl // 2
+    coords = (torch.rand(b, h, w, 2, generator=gen)
+              * torch.tensor([1.4 * w, 1.4 * h]) - torch.tensor(
+                  [0.2 * w, 0.2 * h])).to(dev)
+    corr_kernel.reset_launches()
+    out = corr_kernel.lookup_correlation(pyr, coords, radius)
+    assert corr_kernel.launches == {"corr_lookup": 1}
+    ref = corr_kernel.lookup_correlation_plain(pyr, coords, radius)
+    assert out.shape == (b, h, w, levels * (2 * radius + 1) ** 2)
+    assert _rel(out, ref) <= 1e-6
 
 
 @pytest.mark.parametrize("n,n_steps,n_evals", [
@@ -110,7 +161,8 @@ def test_chain_kernel_matches_plain(dev, n, n_steps, n_evals):
     mlp_kernel.reset_launches()
     got = run(chain_kernel.mlp_embed_chain)
     assert chain_kernel.launches == {"chain_bwd": 1}
-    assert mlp_kernel.launches == {"mlp_fwd": n_evals, "mlp_bwd": 0}
+    assert mlp_kernel.launches == {"mlp_fwd": n_evals, "mlp_bwd": 0,
+                                   "dense_fwd": 0, "dense_bwd": 0}
     want = run(chain_kernel.chain_plain)
     for a, b in zip(got[:3], want[:3]):
         assert _rel(a, b) <= 1e-4

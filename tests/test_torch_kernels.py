@@ -235,3 +235,60 @@ def test_projection_loss_matches_pallas_loss(rng, variant):
         np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(r), **tol,
                                    err_msg=name)
         assert np.isfinite(leaf.grad.numpy()).all()
+
+
+def _dense_params(rng, dims):
+    """``fused_mlp`` weights as tests/test_pallas_mlp.py makes them ([in,
+    out], the JAX layout) and the port's transposes ([out, in])."""
+    ws = [(rng.randn(a, b) * 0.05).astype(np.float32)
+          for a, b in zip(dims[:-1], dims[1:])]
+    bs = [(rng.randn(b) * 0.01).astype(np.float32) for b in dims[1:]]
+    return ws, bs, [torch.from_numpy(w.T.copy()) for w in ws]
+
+
+def test_fused_mlp_forward_matches_pallas(rng):
+    """fused_mlp at N=700 (not a multiple of the tile), 132 -> 64 -> 64 -> 3:
+    values to rtol 1e-5."""
+    from dynamic_video_depth_tpu.ops.pallas.mlp_kernel import fused_mlp
+
+    ws, bs, ws_t = _dense_params(rng, [132, 64, 64, 3])
+    feat = rng.randn(700, 132).astype(np.float32)
+    ref = fused_mlp(jnp.asarray(feat), tuple(map(jnp.asarray, ws)),
+                    tuple(map(jnp.asarray, bs)), 256)
+    out = mlp_kernel.fused_mlp(torch.from_numpy(feat), ws_t,
+                               [torch.from_numpy(b) for b in bs])
+    assert out.shape == (700, 3)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_fused_mlp_gradients_match_pallas(rng):
+    """fused_mlp's backward at N=300, 20 -> 32 -> 32 -> 3: dfeat, every dW
+    and db from a random cotangent, to rtol 1e-4 / atol 1e-5."""
+    from dynamic_video_depth_tpu.ops.pallas.mlp_kernel import fused_mlp
+
+    ws, bs, ws_t = _dense_params(rng, [20, 32, 32, 3])
+    feat = rng.randn(300, 20).astype(np.float32)
+    cot = rng.randn(300, 3).astype(np.float32)
+
+    def loss(f, w, b):
+        return jnp.sum(fused_mlp(f, tuple(w), tuple(b), 128) * cot)
+
+    ref = jax.grad(loss, argnums=(0, 1, 2))(
+        jnp.asarray(feat), list(map(jnp.asarray, ws)),
+        list(map(jnp.asarray, bs)))
+    leaves = [torch.from_numpy(feat).requires_grad_(True),
+              *(w.requires_grad_(True) for w in ws_t),
+              *(torch.from_numpy(b).requires_grad_(True) for b in bs)]
+    out = mlp_kernel.fused_mlp(leaves[0], leaves[1:4], leaves[4:])
+    (out * torch.from_numpy(cot)).sum().backward()
+    tol = dict(rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(leaves[0].grad.numpy(), np.asarray(ref[0]),
+                               **tol, err_msg="dfeat")
+    for i in range(3):
+        np.testing.assert_allclose(leaves[1 + i].grad.numpy().T,
+                                   np.asarray(ref[1][i]), **tol,
+                                   err_msg=f"dW{i}")
+        np.testing.assert_allclose(leaves[4 + i].grad.numpy(),
+                                   np.asarray(ref[2][i]), **tol,
+                                   err_msg=f"db{i}")

@@ -10,8 +10,9 @@ import pytest
 import torch
 
 from dynamic_video_depth_tpu_torch.ops import cuda as cuda_ops
-from dynamic_video_depth_tpu_torch.ops.cuda import (chain_kernel, loss_kernel,
-                                                  mlp_kernel, warp_kernel)
+from dynamic_video_depth_tpu_torch.ops.cuda import (chain_kernel, corr_kernel,
+                                                  loss_kernel, mlp_kernel,
+                                                  warp_kernel)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -97,7 +98,56 @@ def test_mlp_wrapper_never_routes_cuda_to_plain(monkeypatch):
                                16, 16, True)
     out.sum().backward()
     assert lib.calls == ["dvd_mlp_fwd", "dvd_mlp_bwd"]
-    assert mlp_kernel.launches == {"mlp_fwd": 1, "mlp_bwd": 1}
+    assert mlp_kernel.launches == {"mlp_fwd": 1, "mlp_bwd": 1,
+                                   "dense_fwd": 0, "dense_bwd": 0}
+
+
+def test_dense_wrapper_never_routes_cuda_to_plain(monkeypatch):
+    """``fused_mlp`` launches the dense forward, and its backward the dense
+    backward; a failed launch raises."""
+    lib = _FakeLib()
+    plain = _pretend_cuda(monkeypatch, mlp_kernel, lib)
+    monkeypatch.setattr(mlp_kernel, "fused_mlp_plain", plain)
+    mlp_kernel.reset_launches()
+    dims = [20, 8, 3]
+    ws = [torch.randn(b, a, requires_grad=True)
+          for a, b in zip(dims[:-1], dims[1:])]
+    bs = [torch.zeros(b, requires_grad=True) for b in dims[1:]]
+    feat = torch.randn(6, 20, requires_grad=True)
+    mlp_kernel.fused_mlp(feat, ws, bs).sum().backward()
+    assert lib.calls == ["dvd_dense_fwd", "dvd_dense_bwd"]
+    assert mlp_kernel.launches == {"mlp_fwd": 0, "mlp_bwd": 0,
+                                   "dense_fwd": 1, "dense_bwd": 1}
+    monkeypatch.setattr(mlp_kernel, "_lib", lambda: _FakeLib(rc=1))
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        mlp_kernel.fused_mlp(feat, ws, bs)
+    with pytest.raises(TypeError, match="float32"):
+        mlp_kernel.dense_forward_cuda(feat.double(), ws, bs)
+
+
+def _pyramid(b=2, h=4, w=6, levels=2):
+    return [torch.randn(b, h * w, h >> l, w >> l) for l in range(levels)]
+
+
+def test_corr_wrapper_never_routes_cuda_to_plain(monkeypatch):
+    """The lookup launches its kernel, counted by (radius, levels); bad
+    shapes and types raise before any launch."""
+    lib = _FakeLib()
+    plain = _pretend_cuda(monkeypatch, corr_kernel, lib)
+    monkeypatch.setattr(corr_kernel, "lookup_correlation_plain", plain)
+    cuda_ops.reset_launches()
+    out = corr_kernel.lookup_correlation(_pyramid(), torch.zeros(2, 4, 6, 2),
+                                         radius=3)
+    assert out.shape == (2, 4, 6, 2 * 49)
+    assert lib.calls == ["dvd_corr_lookup"]
+    assert corr_kernel.launches == {"corr_lookup": 1}
+    assert cuda_ops.launch_variants() == {("corr_lookup", 3, 2): 1}
+    with pytest.raises(ValueError, match="level"):
+        corr_kernel.lookup_correlation(_pyramid(h=2), torch.zeros(2, 4, 6, 2))
+    with pytest.raises(TypeError, match="float32"):
+        corr_kernel.lookup_correlation(_pyramid(),
+                                       torch.zeros(2, 4, 6, 2).double())
+    assert lib.calls == ["dvd_corr_lookup"]
 
 
 def _chain_args(requires_grad=False):
@@ -127,7 +177,8 @@ def test_chain_wrapper_never_routes_cuda_to_plain(monkeypatch):
     assert lib.calls == ["dvd_mlp_fwd"] * 3 + ["dvd_chain_bwd"]
     assert chain_kernel.launches == {"chain_bwd": 1}
     assert chain_kernel.variants == {("chain_bwd", 2, 3): 1}
-    assert mlp_kernel.launches == {"mlp_fwd": 3, "mlp_bwd": 0}
+    assert mlp_kernel.launches == {"mlp_fwd": 3, "mlp_bwd": 0,
+                                   "dense_fwd": 0, "dense_bwd": 0}
 
 
 def test_launch_variants_name_the_branch(monkeypatch):
@@ -173,7 +224,7 @@ def test_loss_wrapper_never_routes_cuda_to_plain(monkeypatch):
     assert loss_kernel.launches == {"loss_fwd": 1, "loss_bwd": 1}
 
 
-MODULES = [warp_kernel, mlp_kernel, chain_kernel, loss_kernel]
+MODULES = [warp_kernel, mlp_kernel, chain_kernel, loss_kernel, corr_kernel]
 
 
 def _launch(module):
@@ -188,6 +239,9 @@ def _launch(module):
     if module is chain_kernel:
         return sum(o.sum() for o in module.mlp_embed_chain(*_chain_args(True),
                                                            2, 2, 100.0))
+    if module is corr_kernel:
+        return module.lookup_correlation(_pyramid(),
+                                         torch.zeros(2, 4, 6, 2)).sum()
     return module.projection_loss(*_loss_args(requires_grad=True)).sum()
 
 
@@ -198,7 +252,7 @@ def test_failed_launch_raises(monkeypatch, module):
     plain = _pretend_cuda(monkeypatch, mlp_kernel, _FakeLib(rc=1))
     for mod in (module, mlp_kernel):
         for name in ("backward_warp_plain", "mlp_embed_plain", "chain_plain",
-                     "projection_loss_plain"):
+                     "projection_loss_plain", "lookup_correlation_plain"):
             if hasattr(mod, name):
                 monkeypatch.setattr(mod, name, plain)
     with pytest.raises(RuntimeError, match="CUDA error 1"):
