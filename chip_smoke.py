@@ -43,6 +43,20 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    on the card (fused paths) and on the CPU (plain, unfused) and compares
    the losses.
 
+Phase 1 also counts the tensor-core instructions (HMMA, HGMMA) in the two
+MLP libraries with ``cuobjdump -sass`` where the toolkit has it. Phase 2's
+gradient checks of the MLP kernels (``mlp_bwd``, ``chain_bwd``,
+``dense_bwd``) zero the cotangents of the points whose hidden
+pre-activations lie within roundoff of 0 (``flip_points``: there two right
+float32 computations may take different leaky-relu slopes) on both sides,
+and print the share excluded; ``TOL`` is not loosened for it. Each
+``[kernel]`` line gives the kernel's bound (bytes over 3.35 TB/s, or the
+3xTF32 tensor-core bound, 3 x FLOPs over 495 TFLOP/s, for the MLP kernels,
+with their f32-FMA bound share and achieved TFLOP/s) and a library
+yardstick: ``F.grid_sample`` and its autograd backward for the warp, the
+cuBLAS-backed plain stack for the MLP kernels, none for the loss and the
+lookup.
+
 Prints one JSON line with the kernels' results, then the card's name and
 power limit, then ``{"ok": true, "device": {...}}`` last. Exits nonzero,
 printing no result, when any phase fails or no CUDA device is present. It
@@ -55,6 +69,7 @@ import argparse
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -74,6 +89,17 @@ TOL = {"warp_fwd": 1e-6, "warp_bwd": 1e-5, "mlp_fwd": 1e-4, "mlp_bwd": 1e-5,
        "loss_bwd": 1e-5, "dense_fwd": 1e-4, "dense_bwd": 1e-5,
        "corr_lookup": 1e-6}
 CHAINS = ((1, 2), (2, 2), (4, 4), (8, 8))  # (n_steps, n_evals) of gaps 1-8
+# A leaky-relu pre-activation within roundoff of 0 takes either slope in
+# two right float32 computations that sum in different orders (the
+# kernels' tensor-core order against cuBLAS's), which moves a max-based
+# gradient check past TOL. The gradient checks zero the cotangents of the
+# points with |z| < FLIP_TAU * max |z| at any hidden layer of the plain
+# forward (every evaluation of a chain), on both sides: those points then
+# add exactly 0 to every gradient. Forward checks are not masked.
+FLIP_TAU = 2e-6
+# peaks of one H100 SXM (the on-chip-measurement guide): float32 FMAs
+# outside the tensor cores, TF32 tensor cores (dense), device memory
+F32_FLOPS, TF32_FLOPS, HBM_BYTES = 67e12, 495e12, 3.35e12
 SOURCE = {"warp_fwd": "warp.cu", "warp_bwd": "warp.cu",
           "mlp_fwd": "mlp_embed.cu", "mlp_bwd": "mlp_embed.cu",
           "chain_bwd": "mlp_chain.cu", "loss_fwd": "projection_loss.cu",
@@ -149,6 +175,60 @@ def rel_err_each(a, b) -> tuple:
             (diff / b.abs().clamp_min(1e-30)).max().item())
 
 
+def flip_points(feats, weights, biases, tau: float = FLIP_TAU):
+    """Bool ``[N]``: the points whose pre-activation at some hidden layer of
+    the dense stack (leaky-relu 0.2), for any of ``feats`` (one ``[N, C0]``
+    feature set per evaluation), has ``|z| < tau * max |z|`` of that layer
+    and evaluation."""
+    import torch
+    import torch.nn.functional as F
+
+    near = torch.zeros(feats[0].shape[0], dtype=torch.bool,
+                       device=feats[0].device)
+    with torch.no_grad():
+        for h in feats:
+            for w, b in zip(weights[:-1], biases[:-1]):
+                z = F.linear(h, w, b)
+                near |= (z.abs() < tau * z.abs().max()).any(1)
+                h = torch.where(z >= 0, z, 0.2 * z)
+    return near
+
+
+def chain_features(pts, ts, dt, weights, biases, n_freq_xyz: int,
+                   n_freq_t: int, time_dependent: bool, n_evals: int,
+                   sf_div: float) -> list:
+    """The features of every evaluation of the plain chain
+    (``chain_kernel.chain_plain``), with its advects."""
+    import torch
+
+    from dynamic_video_depth_tpu_torch.ops.cuda import mlp_kernel
+    from dynamic_video_depth_tpu_torch.ops.embedding import sceneflow_features
+
+    feats, p, t = [], pts, ts
+    with torch.no_grad():
+        for k in range(n_evals):
+            feats.append(sceneflow_features(p, t, n_freq_xyz, n_freq_t,
+                                            time_dependent))
+            if k + 1 < n_evals:
+                p = p + mlp_kernel.fused_mlp_plain(feats[-1], weights,
+                                                   biases) / sf_div
+                t = t + dt
+    return feats
+
+
+def zero_rows(near, *gs) -> list:
+    """``gs`` with the rows of the ``near`` points set to exactly 0."""
+    import torch
+
+    return [torch.where(near[:, None], torch.zeros_like(g), g) for g in gs]
+
+
+def mlp_flops(dims, n: int) -> float:
+    """Float32 operations of one forward of the dense stack on n points (a
+    multiply-add counts 2; the embedding and the activations not)."""
+    return 2.0 * n * sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+
+
 def phase_build():
     """Build every kernel library at once (one nvcc each) and print the
     compiler's register and spill report."""
@@ -163,17 +243,55 @@ def phase_build():
         for line in report.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[ptxas {mod.LIBRARY}] {line.strip()}")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for mod in KERNEL_MODULES:
+        if mod.LIBRARY not in ("dvd_mlp_embed", "dvd_mlp_chain"):
+            continue
+        lib = build.library_path(mod.LIBRARY, mod.SOURCES, mod.FLAGS)
+        try:
+            sass = subprocess.run([tool, "-sass", str(lib)],
+                                  capture_output=True, text=True,
+                                  timeout=120).stdout
+        except (OSError, subprocess.SubprocessError) as exc:
+            print(f"[sass {mod.LIBRARY}] could not look: {exc}")
+            continue
+        hmma = sum(" HMMA." in ln for ln in sass.splitlines())
+        hgmma = sum(" HGMMA." in ln for ln in sass.splitlines())
+        print(f"[sass {mod.LIBRARY}] tensor-core instructions: HMMA {hmma}, "
+              f"HGMMA {hgmma} (cuobjdump -sass)" if sass else
+              f"[sass {mod.LIBRARY}] could not look: cuobjdump gave nothing")
 
 
 def report(results: dict, name: str, err: tuple, ms: float,
-           plain_ms: float, what: str = "", variant: tuple = ()) -> None:
+           plain_ms: float, what: str = "", variant: tuple = (),
+           flops: float = 0.0, nbytes: float = 0.0,
+           library_ms=None, excluded=None) -> None:
     """Print one comparison, fail past the tolerance, and keep the worst
-    error and the first timing of each kernel; ``variant`` names the
-    branch checked, as ``ops.cuda.launch_variants`` keys it."""
+    error and the first timing of each kernel with its bound; ``variant``
+    names the branch checked, as ``ops.cuda.launch_variants`` keys it.
+    ``flops`` are the float32 operations of a matrix-product kernel (its
+    bound is 3xTF32 on the tensor cores, and its f32-FMA bound is printed
+    too), ``nbytes`` the bytes a kernel must move (each input read once,
+    each output written once); ``excluded`` the share of points whose
+    cotangents the flip mask zeroed."""
     ok = err[1] <= TOL[name]
+    bytes_ms = 1e3 * nbytes / HBM_BYTES
+    ops_ms = 1e3 * 3.0 * flops / TF32_FLOPS
+    bound_ms, bound_by = ((ops_ms, "operations") if ops_ms > bytes_ms
+                          else (bytes_ms, "bytes"))
+    extra = f", bound {bound_ms:.4f} ms ({bound_by}, {bound_ms / ms:.1%})"
+    if flops:
+        f32_ms = 1e3 * flops / F32_FLOPS
+        extra += (f", {flops / ms / 1e9:.2f} TFLOP/s: {f32_ms / ms:.1%} of "
+                  f"the f32-FMA bound {f32_ms:.4f} ms, {ops_ms / ms:.1%} of "
+                  f"the 3xTF32 bound")
+    if library_ms is not None:
+        extra += f", library {library_ms:.4f} ms"
+    if excluded is not None:
+        extra += f"; flip mask excluded {excluded:.3%} of points"
     print(f"[kernel] {name}{what}: max_abs_err {err[0]:.3e} rel {err[1]:.3e} "
           f"(tol {TOL[name]:.0e}) {'ok' if ok else 'FAIL'}; kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms{extra}", flush=True)
     if not ok:
         fail(f"{name}{what} disagrees with its plain version: rel "
              f"{err[1]:.3e}")
@@ -181,7 +299,9 @@ def report(results: dict, name: str, err: tuple, ms: float,
         old = results[name]
         results[name] = dict(old, err=max(old["err"], err[0]))
     else:
-        results[name] = {"err": err[0], "ms": ms, "plain_ms": plain_ms}
+        results[name] = {"err": err[0], "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": library_ms}
     if variant:
         results.setdefault("checked", set()).add((name, *variant))
 
@@ -206,8 +326,10 @@ def field_points(gen, dev, n: int = N_PTS):
 def phase_kernels_ab(dev, results: dict) -> None:
     """Kernels A and B against their plain versions at 224x384."""
     import torch
+    import torch.nn.functional as F
 
     from dynamic_video_depth_tpu_torch.ops.cuda import mlp_kernel, warp_kernel
+    from dynamic_video_depth_tpu_torch.ops.embedding import sceneflow_features
 
     gen = torch.Generator().manual_seed(0)
 
@@ -232,20 +354,39 @@ def phase_kernels_ab(dev, results: dict) -> None:
             s = src.clone().requires_grad_(True)
             (warp_kernel.backward_warp_plain(s, flow) * g).sum().backward()
 
+        # the library yardstick: grid_sample on NCHW, prepared untimed
+        src_nchw = src.permute(0, 3, 1, 2).contiguous()
+        g_nchw = g.permute(0, 3, 1, 2).contiguous()
+        grid = torch.stack([2.0 * (xs + flow[..., 0]) / (W - 1) - 1.0,
+                            2.0 * (torch.arange(H, device=dev)[:, None]
+                                   + flow[..., 1]) / (H - 1) - 1.0], -1)
+        lib_src = src_nchw.clone().requires_grad_(True)
+        lib_out = F.grid_sample(lib_src, grid, align_corners=True,
+                                padding_mode="border")
+        nbytes = 4.0 * H * W * (2 * c + 2)
         what = f" [1,{H},{W},{c}]"
         report(results, "warp_fwd", rel_err(out_k, out_p),
                time_ms(lambda: warp_kernel.warp_forward_cuda(src, flow)),
                time_ms(lambda: warp_kernel.backward_warp_plain(src, flow)),
-               what, (c,))
+               what, (c,), nbytes=nbytes,
+               library_ms=time_ms(lambda: F.grid_sample(
+                   src_nchw, grid, align_corners=True,
+                   padding_mode="border")))
         report(results, "warp_bwd", rel_err(dsrc_k, src_p.grad),
                time_ms(lambda: warp_kernel.warp_backward_cuda(g, flow)),
-               time_ms(plain_bwd), what, (c,))
+               time_ms(plain_bwd), what, (c,), nbytes=nbytes,
+               library_ms=time_ms(lambda: torch.autograd.grad(
+                   lib_out, lib_src, g_nchw, retain_graph=True)))
 
     # kernel B at N = 224 * 384 with the canonical field's random weights
     ws, bs = field_weights(gen, dev)
+    dims = [ws[0].shape[1]] + [w.shape[0] for w in ws]
     pts, ts = field_points(gen, dev)
     gm = torch.randn(N_PTS, 3, generator=gen).to(dev)
     consts = mlp_kernel.embed_consts(16, 16, True, dev)
+    near = flip_points(
+        [sceneflow_features(pts, ts, 16, 16, True)], ws, bs)
+    gm, = zero_rows(near, gm)
     fwd_k = mlp_kernel.mlp_forward_cuda(pts, ts, consts, ws, bs)
     dpts_k, dts_k, dws_k, dbs_k = mlp_kernel.mlp_backward_cuda(
         pts, ts, consts, ws, bs, gm)
@@ -265,14 +406,19 @@ def phase_kernels_ab(dev, results: dict) -> None:
     torch.cuda.synchronize()
     bwd_err = max((rel_err(k, p) for k, p in zip(grads_k, grads_p)),
                   key=lambda e: e[1])
+    # the MLP rows' library yardstick is the cuBLAS-backed plain stack
+    fwd_plain_ms = time_ms(plain_fwd)
+    bwd_plain_ms = time_ms(plain_grads, reps=10)
     report(results, "mlp_fwd", rel_err(fwd_k, plain_fwd()),
            time_ms(lambda: mlp_kernel.mlp_forward_cuda(pts, ts, consts, ws,
                                                        bs)),
-           time_ms(plain_fwd))
+           fwd_plain_ms, flops=mlp_flops(dims, N_PTS),
+           library_ms=fwd_plain_ms)
     report(results, "mlp_bwd", bwd_err,
            time_ms(lambda: mlp_kernel.mlp_backward_cuda(
                pts, ts, consts, ws, bs, gm), reps=10),
-           time_ms(plain_grads, reps=10))
+           bwd_plain_ms, flops=3 * mlp_flops(dims, N_PTS),
+           library_ms=bwd_plain_ms, excluded=near.float().mean().item())
 
 
 def phase_kernel_c(dev, results: dict) -> None:
@@ -289,12 +435,16 @@ def phase_kernel_c(dev, results: dict) -> None:
     pts, ts = field_points(gen, dev)
     dt = torch.full((N_PTS, 1), 1.0 / 6.0, device=dev)
     consts = mlp_kernel.embed_consts(16, 16, True, dev)
-    gs = [(torch.randn(N_PTS, 3, generator=gen) / N_PTS).to(dev)
-          for _ in range(3)]
+    dims = [ws[0].shape[1]] + [w.shape[0] for w in ws]
+    gs_all = [(torch.randn(N_PTS, 3, generator=gen) / N_PTS).to(dev)
+              for _ in range(3)]
     for n_steps, n_evals in CHAINS:
         args = (n_steps, n_evals, 100.0)
         acc, f0, f1, stash = chain_kernel.chain_forward_cuda(
             pts, ts, dt, consts, ws, bs, *args)
+        near = flip_points(chain_features(pts, ts, dt, ws, bs, 16, 16, True,
+                                          n_evals, 100.0), ws, bs)
+        gs = zero_rows(near, *gs_all)
 
         def kernel_bwd():
             return chain_kernel.chain_backward_cuda(
@@ -320,11 +470,13 @@ def phase_kernel_c(dev, results: dict) -> None:
         if fwd_err[1] > TOL["chain_fwd"]:
             fail(f"chain forward{what}: rel {fwd_err[1]:.3e}")
         got = [got[0], got[1], got[2], *got[3], *got[4]]
+        plain_ms = time_ms(plain_bwd, reps=5)
         report(results, "chain_bwd",
                max((rel_err(a, b) for a, b in zip(got, want)),
                    key=lambda e: e[1]),
-               time_ms(kernel_bwd, reps=5), time_ms(plain_bwd, reps=5),
-               what, (n_steps, n_evals))
+               time_ms(kernel_bwd, reps=5), plain_ms, what,
+               (n_steps, n_evals), flops=3 * n_evals * mlp_flops(dims, N_PTS),
+               library_ms=plain_ms, excluded=near.float().mean().item())
         del outs, want, leaves
 
 
@@ -388,16 +540,19 @@ def phase_kernel_d(dev, results: dict) -> None:
             torch.cuda.synchronize()
             if not all(bool(torch.isfinite(g).all()) for g in grads):
                 fail(f"loss_bwd{what}: non-finite gradient")
+            # 13 input floats a pixel (gp1, w3, sf, flow, mask, depth); the
+            # forward writes 4 sums, the backward 9 gradient floats a pixel
             report(results, "loss_fwd", rel_err_each(sums, ref.detach()),
                    time_ms(lambda: loss_kernel.loss_forward_cuda(args,
                                                                  flags)),
                    time_ms(lambda: loss_kernel.projection_loss_plain(
-                       *args, *cfg)), what)
+                       *args, *cfg)), what, nbytes=4.0 * 13 * h * w)
             report(results, "loss_bwd",
                    max((rel_err(a, b) for a, b in zip(grads, ref_grads)),
                        key=lambda e: e[1]),
                    time_ms(lambda: loss_kernel.loss_backward_cuda(
-                       args, flags, cot)), time_ms(plain_bwd), what)
+                       args, flags, cot)), time_ms(plain_bwd), what,
+                   nbytes=4.0 * 22 * h * w)
 
 
 def phase_kernels_new(dev, results: dict) -> None:
@@ -425,18 +580,24 @@ def phase_kernels_new(dev, results: dict) -> None:
     out = corr_kernel.lookup_forward_cuda(*args)
     ref = corr_kernel.lookup_correlation_plain(*args)
     torch.cuda.synchronize()
+    # bytes this lookup needs: per point and level the (2r + 2)^2 taps of
+    # its window (fewer where clamped), its coordinates, its output row
+    taps = 2 * h * w * RAFT_LEVELS * (2 * RAFT_RADIUS + 2) ** 2
+    outs = 2 * h * w * RAFT_LEVELS * (2 * RAFT_RADIUS + 1) ** 2
     report(results, "corr_lookup", rel_err(out, ref),
            time_ms(lambda: corr_kernel.lookup_forward_cuda(*args)),
            time_ms(lambda: corr_kernel.lookup_correlation_plain(*args)),
            f" [2,{h},{w}] L={RAFT_LEVELS} r={RAFT_RADIUS}",
-           (RAFT_RADIUS, RAFT_LEVELS))
+           (RAFT_RADIUS, RAFT_LEVELS),
+           nbytes=4.0 * (taps + outs + 2 * h * w * 2))
 
     dims = [132] + [256] * 5 + [3]
     ws = [(torch.randn(b, a, generator=gen) * (2.0 / a) ** 0.5).to(dev)
           for a, b in zip(dims[:-1], dims[1:])]
     bs = [(0.01 * torch.randn(b, generator=gen)).to(dev) for b in dims[1:]]
     feat = torch.randn(N_PTS, dims[0], generator=gen).to(dev)
-    g = torch.randn(N_PTS, dims[-1], generator=gen).to(dev)
+    near = flip_points([feat], ws, bs)
+    g, = zero_rows(near, torch.randn(N_PTS, dims[-1], generator=gen).to(dev))
     fwd_k = mlp_kernel.dense_forward_cuda(feat, ws, bs)
     dfeat_k, dws_k, dbs_k = mlp_kernel.dense_backward_cuda(feat, ws, bs, g)
 
@@ -448,17 +609,20 @@ def phase_kernels_new(dev, results: dict) -> None:
 
     grads_p = plain_grads()
     torch.cuda.synchronize()
+    fwd_plain_ms = time_ms(lambda: mlp_kernel.fused_mlp_plain(feat, ws, bs))
+    bwd_plain_ms = time_ms(plain_grads, reps=10)
     report(results, "dense_fwd",
            rel_err(fwd_k, mlp_kernel.fused_mlp_plain(feat, ws, bs)),
            time_ms(lambda: mlp_kernel.dense_forward_cuda(feat, ws, bs)),
-           time_ms(lambda: mlp_kernel.fused_mlp_plain(feat, ws, bs)),
-           f" [{N_PTS},132]")
+           fwd_plain_ms, f" [{N_PTS},132]", flops=mlp_flops(dims, N_PTS),
+           library_ms=fwd_plain_ms)
     report(results, "dense_bwd",
            max((rel_err(k, p) for k, p in
                 zip([dfeat_k, *dws_k, *dbs_k], grads_p)), key=lambda e: e[1]),
            time_ms(lambda: mlp_kernel.dense_backward_cuda(feat, ws, bs, g),
                    reps=10),
-           time_ms(plain_grads, reps=10), f" [{N_PTS},132]")
+           bwd_plain_ms, f" [{N_PTS},132]", flops=3 * mlp_flops(dims, N_PTS),
+           library_ms=bwd_plain_ms, excluded=near.float().mean().item())
 
 
 def phase_trainer(dev, workdir: str, label: str, extra: list, gaps: tuple,
@@ -904,6 +1068,8 @@ def main() -> None:
         "source": f"dynamic_video_depth_tpu_torch/csrc/{SOURCE[name]}",
         "replaces": REPLACES[name], "launches": counts[name],
         "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"],
     } for name, r in results.items()]
     print(json.dumps({"kernels": kernels}))
     print(card)

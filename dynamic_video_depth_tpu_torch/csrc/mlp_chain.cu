@@ -29,10 +29,16 @@
 // first evaluation done, k = K - 1, added after that). No float atomics:
 // the result is deterministic.
 //
-// What bounds it on the H100: the FMA pipes, as kernel B's backward, times
-// K evaluations (about 100 GFLOP per evaluation at 86,016 points and the
-// canonical widths); the per-point carries are 7 floats of device memory.
-// The shared memory per block is kernel B's plus the tile's staged p_k, t_k.
+// What bounds it on the H100: arithmetic, as kernel B's backward, times K
+// evaluations (about 153 GFLOP per evaluation at 86,016 points and the
+// canonical widths: the recompute, dX and dW): 2.28 ms per evaluation at
+// the 67 TFLOP/s of float32 FMAs, 0.93 ms on the tensor cores at float32
+// accuracy (3xTF32 at 495 TFLOP/s); the per-point carries are 7 floats of
+// device memory. The design runs on kernel B's tiles (mlp_tile.cuh):
+// 3xTF32 warp MMAs on 128-point tiles, the weights packed once per
+// backward and streamed through a TMA-fed ring, the dW pass on the same
+// MMAs. The shared memory per block is kernel B's plus the tile's staged
+// p_k, t_k.
 
 #include "mlp_tile.cuh"
 
@@ -54,79 +60,91 @@ struct Chain {
   float sf_div;
 };
 
+// kernel B's shared memory, then the tile's p_k, t_k
 constexpr size_t kChainSmem = kPointSmem + sizeof(float) * 4 * kTile;
 
-__global__ void __launch_bounds__(kThreads, 2)
-    chain_bwd_points(const float* __restrict__ consts, int C0, Mlp m,
-                     Scratch s, Chain c, int N) {
-  extern __shared__ float smem[];
-  float* Xs = smem;
-  float* Ws = smem + kTile * kLdx;
-  float* Ps = Ws + kChunk * kLdw;  // [kTile][4]: x, y, z, t_k
-  const int p0 = blockIdx.x * kTile;
-  const int tid = threadIdx.x;
-
-  if (tid < kTile) {
-    const int gp = p0 + tid;
-    float x0 = 0.f, x1 = 0.f, x2 = 0.f, t = 0.f;
-    if (gp < N) {
-      x0 = c.p[3 * (int64_t)gp];
-      x1 = c.p[3 * (int64_t)gp + 1];
-      x2 = c.p[3 * (int64_t)gp + 2];
-      t = c.t0[gp];
-      const float d = c.dt[gp];
-      for (int j = 0; j < c.k; ++j) t = __fadd_rn(t, d);
-    }
-    Ps[4 * tid] = x0;
-    Ps[4 * tid + 1] = x1;
-    Ps[4 * tid + 2] = x2;
-    Ps[4 * tid + 3] = t;
-  }
-  __syncthreads();
-  for (int e = tid; e < kTile * C0; e += kThreads) {
-    const int p = e / C0, ch = e - p * C0;
+struct ChainEmbed {  // features of the staged p_k, t_k (Ps [kTile][4])
+  const float* consts;
+  const float* Ps;
+  int C0;
+  __device__ float operator()(int, int p, int c) const {
     const float* P = Ps + 4 * p;
-    Xs[p * kLdx + ch] =
-        p0 + p < N ? embed_feature(consts, C0, ch, P[0], P[1], P[2], P[3])
-                   : 0.0f;
+    return embed_feature(consts, C0, c, P[0], P[1], P[2], P[3]);
   }
-  forward_store(m, s, Xs, Ws, p0, N);
+};
 
-  // Xs <- g = fbar / sf_div (the field's output is 3 wide)
-  for (int e = tid; e < kTile * 3; e += kThreads) {
-    const int p = e / 3, n = e - p * 3;
-    const int gp = p0 + p;
-    float g = 0.0f;
-    if (gp < N) {
+__global__ void __launch_bounds__(kThreads, 1)
+    chain_bwd_points(const float* __restrict__ consts,
+                     const __grid_constant__ Mlp m,
+                     const __grid_constant__ Walk rec,
+                     const __grid_constant__ Walk bw,
+                     const __grid_constant__ Scratch s,
+                     const __grid_constant__ Chain c, int N, int chunk) {
+  extern __shared__ float4 smem[];
+  float* Xs = (float*)(smem + kStages * kStageF4);
+  uint64_t* bars = (uint64_t*)(Xs + kTile * kLdx);
+  float* Ps = (float*)(bars + 2);  // [kTile][4]: x, y, z, t_k
+  Ring ring = make_ring(smem, bars);
+  const int tid = threadIdx.x;
+  const int C0 = m.din[0];
+  const Range r = block_range(N, chunk);
+  for (int p0 = r.begin; p0 < r.end; p0 += kTile) {
+    const int end = r.end, rows = min(kTile, end - p0);
+    const int mts = row_tiles(rows);
+    __syncthreads();  // the last tile is done with Xs, Ps and the ring
+    start_walk(rec, ring);
+    if (tid < kTile) {
+      const int gp = p0 + tid;
+      float x0 = 0.f, x1 = 0.f, x2 = 0.f, t = 0.f;
+      if (gp < end) {
+        x0 = c.p[3 * (int64_t)gp];
+        x1 = c.p[3 * (int64_t)gp + 1];
+        x2 = c.p[3 * (int64_t)gp + 2];
+        t = c.t0[gp];
+        const float d = c.dt[gp];
+        for (int j = 0; j < c.k; ++j) t = __fadd_rn(t, d);
+      }
+      Ps[4 * tid] = x0;
+      Ps[4 * tid + 1] = x1;
+      Ps[4 * tid + 2] = x2;
+      Ps[4 * tid + 3] = t;
+    }
+    __syncthreads();
+    feature_tile(C0, p0, end, Xs, s.A[0], ChainEmbed{consts, Ps, C0});
+    forward_layers(m, rec, Xs, ring, &s, nullptr, p0, rows, mts);
+
+    // dZ_{L-1} = g = fbar / sf_div (the field's output is 3 wide)
+    __syncthreads();  // the features are written (also with no hidden layer)
+    start_walk(bw, ring);
+    load_grad(m, s, Xs, p0, end, [&](int gp, int n) {
       const int64_t i = 3 * (int64_t)gp + n;
       float f = c.advanced ? c.pbar[i] : 0.0f;
       if (c.in_acc) f = f + c.gacc[i];
       if (c.k == 0) f = f + c.g0[i];
       if (c.k == 1) f = f + c.g1[i];
-      g = f / c.sf_div;
-    }
-    Xs[p * kLdx + n] = g;
-  }
-  backward_store(m, s, Xs, Ws, p0, N);
+      return f / c.sf_div;
+    });
+    backward_layers(m, bw, s, Xs, ring, p0, rows, mts);
 
-  const int p = tid >> 2, q = tid & 3;
-  const int gp = p0 + p;
-  const float* P = Ps + 4 * p;
-  float d[4];
-  embed_grad(consts, C0, Xs + p * kLdx, q, P[0], P[1], P[2], P[3], d);
-  if (q == 0 && gp < N) {
-    const int64_t i = 3 * (int64_t)gp;
-    if (c.advanced) {
-      c.ddt[gp] = c.ddt[gp] + c.tbar[gp];
-      c.pbar[i] = c.pbar[i] + d[0];
-      c.pbar[i + 1] = c.pbar[i + 1] + d[1];
-      c.pbar[i + 2] = c.pbar[i + 2] + d[2];
-      c.tbar[gp] = c.tbar[gp] + d[3];
-    } else {
-      c.pbar[i] = d[0];
-      c.pbar[i + 1] = d[1];
-      c.pbar[i + 2] = d[2];
-      c.tbar[gp] = d[3];
+    const int p = tid >> 2, q = tid & 3;
+    const int gp = p0 + p;
+    const float* P = Ps + 4 * p;
+    float d[4];
+    embed_grad(consts, C0, Xs + p * kLdx, q, P[0], P[1], P[2], P[3], d);
+    if (q == 0 && gp < end) {
+      const int64_t i = 3 * (int64_t)gp;
+      if (c.advanced) {
+        c.ddt[gp] = c.ddt[gp] + c.tbar[gp];
+        c.pbar[i] = c.pbar[i] + d[0];
+        c.pbar[i + 1] = c.pbar[i + 1] + d[1];
+        c.pbar[i + 2] = c.pbar[i + 2] + d[2];
+        c.tbar[gp] = c.tbar[gp] + d[3];
+      } else {
+        c.pbar[i] = d[0];
+        c.pbar[i + 1] = d[1];
+        c.pbar[i + 2] = d[2];
+        c.tbar[gp] = d[3];
+      }
     }
   }
 }
@@ -137,14 +155,15 @@ extern "C" {
 
 // Gradients of the chain: dpts [N,3], dts [N], ddt [N] (zeroed here),
 // dW[l], db[l]. pts [N,3], stash [K-1,N,3] (p_1..p_{K-1}), ts and dt [N];
-// gacc, g0, g1 [N,3] are the cotangents of acc, f0 and f1. A[l], dZ[l] and
-// P are kernel B's backward scratch (dvd_mlp_bwd). The field's output must
-// be 3 wide.
+// gacc, g0, g1 [N,3] are the cotangents of acc, f0 and f1. packed, A[l],
+// dZ[l] and P are kernel B's backward scratch (dvd_mlp_bwd). The field's
+// output must be 3 wide.
 int dvd_chain_bwd(const float* pts, const float* stash, const float* ts,
                   const float* dt, const float* gacc, const float* g0,
                   const float* g1, const float* consts, const void* const* W,
-                  const void* const* b, const int* dims, int L, int n_steps,
-                  int n_evals, float sf_div, float* dpts, float* dts,
+                  const void* const* b, const int* dims, int L,
+                  float* packed, int n_steps, int n_evals, float sf_div,
+                  float* dpts, float* dts,
                   float* ddt, void* const* dW, void* const* db,
                   void* const* A, void* const* dZ, float* P, int S, int N,
                   void* stream) {
@@ -152,12 +171,13 @@ int dvd_chain_bwd(const float* pts, const float* stash, const float* ts,
   if (!valid(m, dims[0]) || dims[L] != 3 || S < 1 || n_evals < 1 ||
       n_steps < 0 || n_steps > n_evals)
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      chain_bwd_points, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kChainSmem);
+  cudaError_t e = allow_smem((const void*)chain_bwd_points, kChainSmem);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
   if (N == 0) return (int)zero_grads(dims, L, dW, db, st);
+  e = pack_layers(m, packed, true, st);
+  if (e != cudaSuccess) return (int)e;
+  const Walk rec = forward_walk(m, L - 1), bw = backward_walk(m);
   e = cudaMemsetAsync(ddt, 0, sizeof(float) * N, st);
   if (e != cudaSuccess) return (int)e;
   Scratch s = make_scratch(A, dZ, L);
@@ -171,14 +191,15 @@ int dvd_chain_bwd(const float* pts, const float* stash, const float* ts,
   c.tbar = dts;
   c.ddt = ddt;
   c.sf_div = sf_div;
-  const unsigned grid = (unsigned)((N + kTile - 1) / kTile);
+  const int chunk = range_chunk(N);
+  const unsigned grid = range_blocks(N, chunk);
   for (int k = n_evals - 1; k >= 0; --k) {
     c.k = k;
     c.p = k == 0 ? pts : stash + (int64_t)(k - 1) * N * 3;
     c.advanced = k + 1 < n_evals;
     c.in_acc = k < n_steps;
-    chain_bwd_points<<<grid, kThreads, kChainSmem, st>>>(consts, dims[0], m, s,
-                                                         c, N);
+    chain_bwd_points<<<grid, kThreads, kChainSmem, st>>>(consts, m, rec, bw,
+                                                         s, c, N, chunk);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     e = weight_grads(m, s, N, S, P, dW, db, k + 1 < n_evals, st);

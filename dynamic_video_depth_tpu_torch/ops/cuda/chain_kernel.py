@@ -71,8 +71,9 @@ def _lib():
     lib = build.load_library(LIBRARY, SOURCES, FLAGS)
     if not getattr(lib, "_dvd_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.dvd_chain_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i,
-                                      i, f, p, p, p, p, p, p, p, p, i, i, p]
+        lib.dvd_chain_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, p,
+                                      i, i, f, p, p, p, p, p, p, p, p, i, i,
+                                      p]
         lib.dvd_chain_bwd.restype = i
         lib._dvd_typed = True
     return lib
@@ -132,15 +133,16 @@ def chain_backward_cuda(pts, ts, dt, consts, weights, biases, stash, gacc,
     ddt = torch.empty((n, 1), **f32)
     dws = [torch.empty_like(w) for w in weights]
     dbs = [torch.empty_like(b) for b in biases]
-    acts, dzs, partial = backward_scratch(n, dims, dev)
+    acts, dzs, partial, packed = backward_scratch(n, dims, dev)
     rc = _lib().dvd_chain_bwd(
         pts.data_ptr(), stash.data_ptr(), ts.data_ptr(), dt.data_ptr(),
         gacc.data_ptr(), g0.data_ptr(), g1.data_ptr(), consts.data_ptr(),
         ptr_array(weights), ptr_array(biases),
-        (ctypes.c_int * len(dims))(*dims), len(weights), n_steps, n_evals,
-        float(sf_div), dpts.data_ptr(), dts.data_ptr(), ddt.data_ptr(),
-        ptr_array(dws), ptr_array(dbs), ptr_array(acts), ptr_array(dzs),
-        partial.data_ptr(), partial.shape[0], n, stream_handle(dev))
+        (ctypes.c_int * len(dims))(*dims), len(weights), packed.data_ptr(),
+        n_steps, n_evals, float(sf_div), dpts.data_ptr(), dts.data_ptr(),
+        ddt.data_ptr(), ptr_array(dws), ptr_array(dbs), ptr_array(acts),
+        ptr_array(dzs), partial.data_ptr(), partial.shape[0], n,
+        stream_handle(dev))
     build.check(rc, "dvd_chain_bwd")
     launches["chain_bwd"] += 1
     variants["chain_bwd", n_steps, n_evals] += 1

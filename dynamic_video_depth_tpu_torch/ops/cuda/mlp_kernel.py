@@ -11,6 +11,10 @@ the dense stack on given features, from the same CUDA source (the same tiles
 without the embedding); its plain version is ``fused_mlp_plain``. Nothing
 on a trainer path calls it, as nothing in the JAX package does.
 
+The kernels multiply on the tensor cores at float32 accuracy (3xTF32, the
+tiles of ``csrc/mlp_tile.cuh``) with the weights packed once per launch
+into scratch that the wrappers allocate (``packed_weights``).
+
 Weights use the torch ``nn.Linear`` layout (``[out, in]``). Dispatch: a CPU
 tensor takes the plain version (the CPU oracle); a CUDA tensor launches the
 kernel or raises. There is no other route.
@@ -92,12 +96,12 @@ def _lib():
     lib = build.load_library(LIBRARY, SOURCES, FLAGS)
     if not getattr(lib, "_dvd_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dvd_mlp_fwd.argtypes = [p, p, p, p, p, p, i, p, i, p]
+        lib.dvd_mlp_fwd.argtypes = [p, p, p, p, p, p, i, p, p, i, p]
         lib.dvd_mlp_bwd.argtypes = [p, p, p, p, p, p, i, p, p, p, p, p, p,
-                                    p, p, i, i, p]
-        lib.dvd_dense_fwd.argtypes = [p, p, p, p, i, p, i, p]
+                                    p, p, p, i, i, p]
+        lib.dvd_dense_fwd.argtypes = [p, p, p, p, i, p, p, i, p]
         lib.dvd_dense_bwd.argtypes = [p, p, p, p, i, p, p, p, p, p, p, p,
-                                      i, i, p]
+                                      p, i, i, p]
         for fn in (lib.dvd_mlp_fwd, lib.dvd_mlp_bwd, lib.dvd_dense_fwd,
                    lib.dvd_dense_bwd):
             fn.restype = i
@@ -145,6 +149,20 @@ def check_inputs(pts, ts, consts, weights, biases) -> list:
                         (pts, ts, consts, *weights, *biases))
 
 
+def pad8(x: int) -> int:
+    return -(-x // 8) * 8
+
+
+def packed_weights(dims, backward: bool, device) -> torch.Tensor:
+    """Scratch for the weights as the kernels pack them once per launch:
+    per layer and operand ``2 * pad8(in) * pad8(out)`` floats (hi and lo
+    TF32 parts, zero-padded to multiples of 8); the forward packs ``W``, a
+    backward also ``W^T``."""
+    n = sum(2 * pad8(a) * pad8(b) for a, b in zip(dims[:-1], dims[1:]))
+    return torch.empty(n * (2 if backward else 1), device=device,
+                       dtype=torch.float32)
+
+
 def mlp_forward_cuda(pts, ts, consts, weights, biases) -> torch.Tensor:
     """Launch the forward kernel on the current stream."""
     dims = check_inputs(pts, ts, consts, weights, biases)
@@ -153,10 +171,11 @@ def mlp_forward_cuda(pts, ts, consts, weights, biases) -> torch.Tensor:
     biases = [b.contiguous() for b in biases]
     n = pts.shape[0]
     out = torch.empty((n, dims[-1]), device=pts.device, dtype=torch.float32)
+    packed = packed_weights(dims, False, pts.device)
     rc = _lib().dvd_mlp_fwd(
         pts.data_ptr(), ts.data_ptr(), consts.data_ptr(), ptr_array(weights),
         ptr_array(biases), (ctypes.c_int * len(dims))(*dims), len(weights),
-        out.data_ptr(), n, stream_handle(pts.device))
+        packed.data_ptr(), out.data_ptr(), n, stream_handle(pts.device))
     build.check(rc, "dvd_mlp_fwd")
     launches["mlp_fwd"] += 1
     return out
@@ -170,14 +189,16 @@ def split_count(n: int) -> int:
 
 def backward_scratch(n: int, dims, device):
     """The backward's scratch: every layer's inputs ``A_l [n, dims[l]]`` and
-    output gradients ``dZ_l [n, dims[l+1]]``, and the weight-gradient
-    partial sums ``[S, max_l dims[l+1] (dims[l] + 1)]``."""
+    output gradients ``dZ_l [n, dims[l+1]]``, the weight-gradient partial
+    sums ``[S, max_l dims[l+1] (dims[l] + 1)]`` and the packed weights of
+    both operands."""
     f32 = dict(device=device, dtype=torch.float32)
     layers = range(len(dims) - 1)
     acts = [torch.empty((n, dims[i]), **f32) for i in layers]
     dzs = [torch.empty((n, dims[i + 1]), **f32) for i in layers]
     part = max(dims[i + 1] * (dims[i] + 1) for i in layers)
-    return acts, dzs, torch.empty((split_count(n), part), **f32)
+    return (acts, dzs, torch.empty((split_count(n), part), **f32),
+            packed_weights(dims, True, device))
 
 
 def mlp_backward_cuda(pts, ts, consts, weights, biases, g):
@@ -197,13 +218,13 @@ def mlp_backward_cuda(pts, ts, consts, weights, biases, g):
     dts = torch.empty((n, 1), **f32)
     dws = [torch.empty_like(w) for w in weights]
     dbs = [torch.empty_like(b) for b in biases]
-    acts, dzs, partial = backward_scratch(n, dims, dev)
+    acts, dzs, partial, packed = backward_scratch(n, dims, dev)
     rc = _lib().dvd_mlp_bwd(
         pts.data_ptr(), ts.data_ptr(), consts.data_ptr(), ptr_array(weights),
         ptr_array(biases), (ctypes.c_int * len(dims))(*dims), len(weights),
-        g.data_ptr(), dpts.data_ptr(), dts.data_ptr(), ptr_array(dws),
-        ptr_array(dbs), ptr_array(acts), ptr_array(dzs), partial.data_ptr(),
-        partial.shape[0], n, stream_handle(dev))
+        packed.data_ptr(), g.data_ptr(), dpts.data_ptr(), dts.data_ptr(),
+        ptr_array(dws), ptr_array(dbs), ptr_array(acts), ptr_array(dzs),
+        partial.data_ptr(), partial.shape[0], n, stream_handle(dev))
     build.check(rc, "dvd_mlp_bwd")
     launches["mlp_bwd"] += 1
     return dpts, dts, dws, dbs
@@ -253,10 +274,11 @@ def dense_forward_cuda(feat, weights, biases) -> torch.Tensor:
     biases = [b.contiguous() for b in biases]
     n = feat.shape[0]
     out = torch.empty((n, dims[-1]), device=feat.device, dtype=torch.float32)
+    packed = packed_weights(dims, False, feat.device)
     rc = _lib().dvd_dense_fwd(
         feat.data_ptr(), ptr_array(weights), ptr_array(biases),
-        (ctypes.c_int * len(dims))(*dims), len(weights), out.data_ptr(), n,
-        stream_handle(feat.device))
+        (ctypes.c_int * len(dims))(*dims), len(weights), packed.data_ptr(),
+        out.data_ptr(), n, stream_handle(feat.device))
     build.check(rc, "dvd_dense_fwd")
     launches["dense_fwd"] += 1
     return out
@@ -276,13 +298,13 @@ def dense_backward_cuda(feat, weights, biases, g):
     dfeat = torch.empty_like(feat)
     dws = [torch.empty_like(w) for w in weights]
     dbs = [torch.empty_like(b) for b in biases]
-    acts, dzs, partial = backward_scratch(n, dims, feat.device)
+    acts, dzs, partial, packed = backward_scratch(n, dims, feat.device)
     rc = _lib().dvd_dense_bwd(
         feat.data_ptr(), ptr_array(weights), ptr_array(biases),
-        (ctypes.c_int * len(dims))(*dims), len(weights), g.data_ptr(),
-        dfeat.data_ptr(), ptr_array(dws), ptr_array(dbs), ptr_array(acts),
-        ptr_array(dzs), partial.data_ptr(), partial.shape[0], n,
-        stream_handle(feat.device))
+        (ctypes.c_int * len(dims))(*dims), len(weights), packed.data_ptr(),
+        g.data_ptr(), dfeat.data_ptr(), ptr_array(dws), ptr_array(dbs),
+        ptr_array(acts), ptr_array(dzs), partial.data_ptr(), partial.shape[0],
+        n, stream_handle(feat.device))
     build.check(rc, "dvd_dense_bwd")
     launches["dense_bwd"] += 1
     return dfeat, dws, dbs

@@ -7,19 +7,29 @@ imports no JAX, so it also runs where only PyTorch is installed:
 
 Tolerances are relative to the largest reference value: the warp forward
 differs from its plain version only by FMA contraction; the warp backward
-adds in atomic order; the MLP and the chain sum over points in another
-order; the loss kernel is built without FMA contraction, so per pixel it
-matches its plain version and only the order of the global sums differs;
-the correlation lookup differs from its plain gather by FMA contraction
-only.
+adds in atomic order; the MLP and the chain run 3xTF32 tensor-core
+products (float32 accuracy, another summation order than cuBLAS); the loss
+kernel is built without FMA contraction, so per pixel it matches its plain
+version and only the order of the global sums differs; the correlation
+lookup differs from its plain gather by FMA contraction only.
+
+The MLP and chain gradient checks zero the cotangents of the points whose
+hidden pre-activations lie within roundoff of 0 (``chip_smoke.flip_points``,
+the same mask as the smoke's): there the leaky-relu slope may differ
+between two right float32 computations.
 """
 
 import pytest
 import torch
 
+from chip_smoke import chain_features, flip_points, zero_rows
 from dynamic_video_depth_tpu_torch.ops.cuda import (chain_kernel, corr_kernel,
                                                   loss_kernel, mlp_kernel,
                                                   warp_kernel)
+from dynamic_video_depth_tpu_torch.ops.embedding import sceneflow_features
+
+# the canonical field, 132 -> 256 -> 256 x4 -> 3
+CANON = [132, 256, 256, 256, 256, 256, 3]
 
 pytestmark = pytest.mark.cuda
 
@@ -53,23 +63,33 @@ def test_warp_kernel_matches_plain(dev, c):
     assert warp_kernel.launches["warp_fwd"] == 1
 
 
-@pytest.mark.parametrize("n,width,layers,nfx,nft", [
-    (86016, 256, 4, 16, 16), (1000, 256, 4, 16, 16), (777, 32, 2, 4, 2)])
-def test_mlp_kernel_matches_plain(dev, n, width, layers, nfx, nft):
-    from dynamic_video_depth_tpu_torch.models import SceneFlowFieldNet
+def _stack(gen, dims, dev):
+    ws = [(torch.randn(b, a, generator=gen) * (2.0 / a) ** 0.5).to(dev)
+          for a, b in zip(dims[:-1], dims[1:])]
+    bs = [(0.01 * torch.randn(b, generator=gen)).to(dev) for b in dims[1:]]
+    return ws, bs
 
-    gen = torch.Generator().manual_seed(n)
-    net = SceneFlowFieldNet(time_dependent=True, n_freq_xyz=nfx, n_freq_t=nft,
-                            net_width=width, n_layers=layers, generator=gen)
-    params = [p.detach().to(dev) for l in net.convs
-              for p in (l.conv.weight, l.conv.bias)]
+
+# the canonical field at 224x384 and at point counts around the 128-point
+# tile's edges; a one-layer and a two-layer net pad K = 132 and N = 3 with
+# no hidden layer between them
+@pytest.mark.parametrize("n,dims,nfx,nft", [
+    (86016, CANON, 16, 16), (1000, CANON, 16, 16),
+    (777, [32, 32, 32, 32, 3], 4, 2), (1, CANON, 16, 16),
+    (63, CANON, 16, 16), (65, CANON, 16, 16), (129, CANON, 16, 16),
+    (300, [132, 3], 16, 16), (300, [132, 64, 3], 16, 16)])
+def test_mlp_kernel_matches_plain(dev, n, dims, nfx, nft):
+    gen = torch.Generator().manual_seed(n + len(dims))
+    ws, bs = _stack(gen, dims, dev)
     pts = torch.randn(n, 3, generator=gen).to(dev)
     ts = torch.rand(n, 1, generator=gen).to(dev)
-    g = torch.randn(n, 3, generator=gen).to(dev)
+    near = flip_points([sceneflow_features(pts, ts, nfx, nft, True)], ws, bs)
+    g, = zero_rows(near, torch.randn(n, 3, generator=gen).to(dev))
+    nl = len(ws)
 
     def run(fn):
-        leaves = [t.clone().requires_grad_(True) for t in (pts, ts, *params)]
-        out = fn(leaves[0], leaves[1], leaves[2::2], leaves[3::2],
+        leaves = [t.clone().requires_grad_(True) for t in (pts, ts, *ws, *bs)]
+        out = fn(leaves[0], leaves[1], leaves[2:2 + nl], leaves[2 + nl:],
                  nfx, nft, True)
         (out * g).sum().backward()
         return [out.detach()] + [t.grad for t in leaves]
@@ -92,7 +112,8 @@ def test_fused_mlp_kernel_matches_plain(dev, n, dims):
           for a, b in zip(dims[:-1], dims[1:])]
     bs = [(0.01 * torch.randn(b, generator=gen)).to(dev) for b in dims[1:]]
     feat = torch.randn(n, dims[0], generator=gen).to(dev)
-    g = torch.randn(n, dims[-1], generator=gen).to(dev)
+    g, = zero_rows(flip_points([feat], ws, bs),
+                   torch.randn(n, dims[-1], generator=gen).to(dev))
 
     def run(fn):
         leaves = [t.clone().requires_grad_(True) for t in (feat, *ws, *bs)]
@@ -132,10 +153,7 @@ def test_corr_lookup_kernel_matches_plain(dev, b, h, w, radius, levels):
     assert _rel(out, ref) <= 1e-6
 
 
-@pytest.mark.parametrize("n,n_steps,n_evals", [
-    (86016, 2, 2), (86016, 8, 8), (777, 1, 2), (777, 3, 4), (86016, 1, 2),
-    (86016, 4, 4)])
-def test_chain_kernel_matches_plain(dev, n, n_steps, n_evals):
+def _chain_inputs(dev, n, n_evals):
     from dynamic_video_depth_tpu_torch.models import SceneFlowFieldNet
 
     gen = torch.Generator().manual_seed(n + n_evals)
@@ -148,6 +166,16 @@ def test_chain_kernel_matches_plain(dev, n, n_steps, n_evals):
     ts = torch.rand(n, 1, generator=gen).to(dev)
     dt = torch.full((n, 1), 0.05).to(dev)
     gs = [torch.randn(n, 3, generator=gen).to(dev) for _ in range(3)]
+    return ws, bs, pts, ts, dt, gs
+
+
+@pytest.mark.parametrize("n,n_steps,n_evals", [
+    (86016, 2, 2), (86016, 8, 8), (777, 1, 2), (777, 3, 4), (86016, 1, 2),
+    (86016, 4, 4), (1, 1, 2), (63, 1, 2), (65, 1, 2), (129, 1, 2)])
+def test_chain_kernel_matches_plain(dev, n, n_steps, n_evals):
+    ws, bs, pts, ts, dt, gs = _chain_inputs(dev, n, n_evals)
+    gs = zero_rows(flip_points(chain_features(
+        pts, ts, dt, ws, bs, 16, 16, True, n_evals, 100.0), ws, bs), *gs)
 
     def run(fn):
         leaves = [t.clone().requires_grad_(True)
@@ -168,6 +196,30 @@ def test_chain_kernel_matches_plain(dev, n, n_steps, n_evals):
         assert _rel(a, b) <= 1e-4
     for a, b in zip(got[3:], want[3:]):
         assert _rel(a, b) <= 1e-5
+
+
+@pytest.mark.parametrize("kernel", ["mlp_bwd", "chain_bwd"])
+def test_mlp_backward_is_bit_deterministic(dev, kernel):
+    """Kernel B's and C's backward twice on the same inputs: dW, db, dpts,
+    dts (and the chain's ddt) are bit-equal (no float atomics)."""
+    n = 86016
+    ws, bs, pts, ts, dt, gs = _chain_inputs(dev, n, 2)
+    consts = mlp_kernel.embed_consts(16, 16, True, dev)
+    if kernel == "mlp_bwd":
+        def run():
+            dpts, dts, dws, dbs = mlp_kernel.mlp_backward_cuda(
+                pts, ts, consts, ws, bs, gs[0])
+            return [dpts, dts, *dws, *dbs]
+    else:
+        stash = chain_kernel.chain_forward_cuda(pts, ts, dt, consts, ws, bs,
+                                                2, 2, 100.0)[3]
+
+        def run():
+            dpts, dts, ddt, dws, dbs = chain_kernel.chain_backward_cuda(
+                pts, ts, dt, consts, ws, bs, stash, *gs, 2, 2, 100.0)
+            return [dpts, dts, ddt, *dws, *dbs]
+    first, second = run(), run()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def _loss_inputs(dev, b, h, w, seed):

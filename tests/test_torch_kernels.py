@@ -3,7 +3,11 @@
 On the CPU each wrapper of ``dynamic_video_depth_tpu_torch.ops.cuda`` runs
 its plain PyTorch version; the JAX side runs its Pallas kernel in interpret
 mode, as the JAX package's own tests do. Inputs come from numpy with a
-seed."""
+seed.
+
+The MLP kernels' arithmetic on the card (3xTF32 tensor-core products) is
+emulated here in torch and held against the JAX package, and the
+leaky-relu flip mask of the card's gradient checks is tested."""
 
 import numpy as np
 import pytest
@@ -11,6 +15,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from chip_smoke import chain_features, flip_points, zero_rows
 from dynamic_video_depth_tpu.ops import embedding as jax_embedding
 from dynamic_video_depth_tpu.ops.pallas.mlp_kernel import fused_mlp_embed
 from dynamic_video_depth_tpu.ops.pallas.warp_kernel import fused_backward_warp
@@ -118,10 +123,10 @@ def test_sceneflow_features_match(rng):
 CHAIN_DIMS = [3 * (1 + 2 * 4) + (1 + 2 * 2), 32, 32, 32, 3]
 
 
-@pytest.mark.parametrize("n_steps,n_evals", [(1, 2), (2, 2), (3, 3), (4, 4)])
-def test_chain_matches_pallas_chain(rng, n_steps, n_evals):
-    """fused_mlp_embed_chain at N=600, width 32, 2 layers, freqs 4/2: the
-    three outputs, and dpts, dts, ddt, dW, db from random cotangents."""
+def _chain_parity(rng, n_steps, n_evals, masked):
+    """fused_mlp_embed_chain at N=600, width 32, 2 layers, freqs 4/2, and
+    the port's chain: the three outputs, and dpts, dts, ddt, dW, db from
+    random cotangents (with ``masked``, zeroed at the flip-mask points)."""
     from dynamic_video_depth_tpu.ops.pallas.mlp_kernel import (
         fused_mlp_embed_chain)
 
@@ -133,6 +138,13 @@ def test_chain_matches_pallas_chain(rng, n_steps, n_evals):
           for a, b in zip(dims[:-1], dims[1:])]
     bs = [(rng.randn(b) * 0.01).astype(np.float32) for b in dims[1:]]
     gs = [rng.randn(n, 3).astype(np.float32) for _ in range(3)]
+    if masked:
+        ws_t = [torch.from_numpy(w.T.copy()) for w in ws]
+        bs_t = [torch.from_numpy(b) for b in bs]
+        near = flip_points(chain_features(
+            *map(torch.from_numpy, (pts, ts, dt)), ws_t, bs_t, 4, 2, True,
+            n_evals, sf_div), ws_t, bs_t)
+        gs = [g.numpy() for g in zero_rows(near, *map(torch.from_numpy, gs))]
     consts = [jnp.asarray(c) for c in
               jax_embedding.sceneflow_embed_consts(4, 2, True)]
 
@@ -167,6 +179,214 @@ def test_chain_matches_pallas_chain(rng, n_steps, n_evals):
         np.testing.assert_allclose(leaves[3 + nl + i].grad.numpy(),
                                    np.asarray(ref_grads[4][i]), **tol,
                                    err_msg=f"db{i}")
+
+
+@pytest.mark.parametrize("n_steps,n_evals", [(1, 2), (2, 2), (3, 3), (4, 4)])
+def test_chain_matches_pallas_chain(rng, n_steps, n_evals):
+    """fused_mlp_embed_chain at N=600, width 32, 2 layers, freqs 4/2: the
+    three outputs, and dpts, dts, ddt, dW, db from random cotangents."""
+    _chain_parity(rng, n_steps, n_evals, masked=False)
+
+
+@pytest.mark.parametrize("n_steps,n_evals", [(2, 2), (4, 4)])
+def test_masked_chain_matches_pallas_chain(rng, n_steps, n_evals):
+    """With the card checks' flip mask on the cotangents, the port's plain
+    chain still matches the JAX package at the same tolerance."""
+    _chain_parity(rng, n_steps, n_evals, masked=True)
+
+
+def test_flip_points_marks_exactly_the_near_zero_points():
+    """A hand-built stack 2 -> 2 -> 2 -> 1 (both hidden layers identity,
+    the second with bias (-1, 0)): rows with a pre-activation within
+    2e-6 * max |z| of 0 at either hidden layer are marked, no other, and
+    their cotangents become exactly 0."""
+    feat = torch.tensor([[1.0, 2.0],      # layer 2: 1 - 1 = 0
+                         [1e-7, 3.0],     # layer 1: 1e-7 < 1e-5
+                         [-2.0, 5.0],     # clear of 0 at both
+                         [0.5, -1e-8],    # layer 1
+                         [3.0, 4.0]])     # clear
+    eye = torch.eye(2)
+    ws = [eye, eye, torch.ones(1, 2)]
+    bs = [torch.zeros(2), torch.tensor([-1.0, 0.0]), torch.zeros(1)]
+    near = flip_points([feat], ws, bs)
+    assert near.tolist() == [True, True, False, True, False]
+    # a second evaluation marks its own rows too (the union)
+    shifted = feat + torch.tensor([[0.0, 0.0]] * 4 + [[-3.0, 0.0]])
+    assert flip_points([feat, shifted], ws, bs).tolist() == [
+        True, True, False, True, True]
+    g = torch.arange(10.0).reshape(5, 2) + 1.0
+    masked, = zero_rows(near, g)
+    assert (masked[near] == 0).all()
+    assert torch.equal(masked[~near], g[~near])
+    # a stack with no hidden layer marks nothing
+    assert not flip_points([feat], ws[2:], bs[2:]).any()
+
+
+# 3xTF32 on the card, emulated: TF32 keeps 10 mantissa bits; cvt.rna rounds
+# to nearest with ties away from zero, which on the float's bits is adding
+# half of the 13 dropped bits and clearing them.
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return ah @ bh + (ah @ bl + al @ bh)
+
+
+def _mm_tf32(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+class _EmuLinear(torch.autograd.Function):
+    """``x W^T + b`` whose three products (forward, dX, dW) all run in the
+    given emulated arithmetic, as the kernels run them."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, mm):
+        ctx.save_for_backward(x, w)
+        ctx.mm = mm
+        return mm(x, w.t()) + b
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        return ctx.mm(g, w), ctx.mm(g.t(), x), g.sum(0), None
+
+
+def _emu_field(mm):
+    def field(pts, ts, weights, biases, nfx, nft, td):
+        h = embedding.sceneflow_features(pts, ts, nfx, nft, td)
+        for i, (w, b) in enumerate(zip(weights, biases)):
+            h = _EmuLinear.apply(h, w, b, mm)
+            if i < len(weights) - 1:
+                h = torch.where(h >= 0, h, 0.2 * h)
+        return h
+    return field
+
+
+def _max_rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+EMU_DIMS = [132, 256, 256, 256, 256, 256, 3]
+
+
+@pytest.mark.parametrize("arith", ["3xtf32", "tf32"])
+def test_tf32_split_emulation_matches_pallas_mlp(rng, arith):
+    """The embedded MLP at the canonical widths, N = 2048, every product in
+    emulated 3xTF32, against fused_mlp_embed: forward within 1e-4 and every
+    gradient within 1e-5 of max |ref| (the card checks' tolerances, with
+    their flip mask). Single-pass TF32 must miss the gradient tolerance."""
+    n = 2048
+    pts = rng.randn(n, 3).astype(np.float32)
+    ts = rng.rand(n, 1).astype(np.float32)
+    ws = [(rng.randn(a, b) * np.sqrt(2.0 / a)).astype(np.float32)
+          for a, b in zip(EMU_DIMS[:-1], EMU_DIMS[1:])]
+    bs = [(rng.randn(b) * 0.01).astype(np.float32) for b in EMU_DIMS[1:]]
+    ws_t = [torch.from_numpy(w.T.copy()) for w in ws]
+    bs_t = [torch.from_numpy(b) for b in bs]
+    near = flip_points([embedding.sceneflow_features(
+        torch.from_numpy(pts), torch.from_numpy(ts), 16, 16, True)],
+        ws_t, bs_t)
+    g, = zero_rows(near, torch.from_numpy(
+        (rng.randn(n, 3) / 100.0).astype(np.float32)))
+    g = g.numpy()
+    consts = [jnp.asarray(c) for c in
+              jax_embedding.sceneflow_embed_consts(16, 16, True)]
+
+    def loss(p, t, w, b):
+        return jnp.sum(fused_mlp_embed(p, t, *consts, tuple(w), tuple(b)) * g)
+
+    args = (jnp.asarray(pts), jnp.asarray(ts),
+            [jnp.asarray(w) for w in ws], [jnp.asarray(b) for b in bs])
+    ref = fused_mlp_embed(args[0], args[1], *consts, tuple(args[2]),
+                          tuple(args[3]))
+    ref_grads = jax.grad(loss, argnums=(0, 1, 2, 3))(*args)
+
+    mm = _mm_3xtf32 if arith == "3xtf32" else _mm_tf32
+    leaves = [torch.from_numpy(x).requires_grad_(True)
+              for x in (pts, ts, *[w.T.copy() for w in ws], *bs)]
+    out = _emu_field(mm)(leaves[0], leaves[1], leaves[2:8], leaves[8:], 16,
+                         16, True)
+    (out * torch.from_numpy(g)).sum().backward()
+    fwd = _max_rel(out.detach(), ref)
+    grads = [_max_rel(leaves[0].grad, ref_grads[0]),
+             _max_rel(leaves[1].grad, ref_grads[1])]
+    grads += [_max_rel(leaves[2 + i].grad.T, ref_grads[2][i])
+              for i in range(6)]
+    grads += [_max_rel(leaves[8 + i].grad, ref_grads[3][i])
+              for i in range(6)]
+    if arith == "3xtf32":
+        assert fwd <= 1e-4
+        assert max(grads) <= 1e-5, grads
+    else:
+        assert max(grads) > 1e-5, grads
+
+
+def test_tf32_split_emulation_matches_pallas_chain(rng):
+    """The Euler chain at (n_steps, n_evals) = (2, 2), the canonical widths,
+    N = 2048, every product in emulated 3xTF32, against
+    fused_mlp_embed_chain: values within 1e-5 and every gradient within
+    1e-5 of max |ref|, with the flip mask on the cotangents."""
+    from dynamic_video_depth_tpu.ops.pallas.mlp_kernel import (
+        fused_mlp_embed_chain)
+
+    n, sf_div, n_steps, n_evals = 2048, 100.0, 2, 2
+    pts = np.concatenate([rng.rand(n, 2) * 2.0 - 1.0,
+                          rng.rand(n, 1) * 2.0 + 2.0], 1).astype(np.float32)
+    ts = rng.rand(n, 1).astype(np.float32)
+    dt = np.full((n, 1), 1.0 / 6.0, np.float32)
+    ws = [(rng.randn(a, b) * np.sqrt(2.0 / a)).astype(np.float32)
+          for a, b in zip(EMU_DIMS[:-1], EMU_DIMS[1:])]
+    bs = [(rng.randn(b) * 0.01).astype(np.float32) for b in EMU_DIMS[1:]]
+    ws_t = [torch.from_numpy(w.T.copy()) for w in ws]
+    bs_t = [torch.from_numpy(b) for b in bs]
+    near = flip_points(chain_features(
+        *map(torch.from_numpy, (pts, ts, dt)), ws_t, bs_t, 16, 16, True,
+        n_evals, sf_div), ws_t, bs_t)
+    gs = [g.numpy() for g in zero_rows(near, *(
+        torch.from_numpy(rng.randn(n, 3).astype(np.float32))
+        for _ in range(3)))]
+    consts = [jnp.asarray(c) for c in
+              jax_embedding.sceneflow_embed_consts(16, 16, True)]
+
+    def loss(p, t, d, w, b):
+        outs = fused_mlp_embed_chain(p, t, d, *consts, tuple(w), tuple(b),
+                                     n_steps, n_evals, sf_div)
+        return sum(jnp.sum(o * g) for o, g in zip(outs, gs)), outs
+
+    args = (jnp.asarray(pts), jnp.asarray(ts), jnp.asarray(dt),
+            [jnp.asarray(w) for w in ws], [jnp.asarray(b) for b in bs])
+    ref_grads, ref = jax.grad(loss, argnums=(0, 1, 2, 3, 4),
+                              has_aux=True)(*args)
+
+    field = _emu_field(_mm_3xtf32)
+    leaves = [torch.from_numpy(x).requires_grad_(True)
+              for x in (pts, ts, dt, *[w.T.copy() for w in ws], *bs)]
+    p, t = leaves[0], leaves[1]
+    acc = torch.zeros_like(p)
+    outs = []
+    for k in range(n_evals):
+        sf = field(p, t, leaves[3:9], leaves[9:], 16, 16, True) / sf_div
+        outs.append(sf)
+        if k < n_steps:
+            acc = acc + sf
+        if k + 1 < n_evals:
+            p, t = p + sf, t + leaves[2]
+    outs = [acc] + outs
+    sum((o * torch.from_numpy(g)).sum() for o, g in zip(outs, gs)).backward()
+    for o, r in zip(outs, ref):
+        assert _max_rel(o.detach(), r) <= 1e-5
+    got = [leaves[i].grad for i in range(3)]
+    got += [leaves[3 + i].grad.T for i in range(6)]
+    got += [leaves[9 + i].grad for i in range(6)]
+    want = [*ref_grads[:3], *ref_grads[3], *ref_grads[4]]
+    errs = [_max_rel(a, b) for a, b in zip(got, want)]
+    assert max(errs) <= 1e-5, errs
 
 
 LOSS_VARIANTS = [
