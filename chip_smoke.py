@@ -97,7 +97,7 @@ CHAINS = ((1, 2), (2, 2), (4, 4), (8, 8))  # (n_steps, n_evals) of gaps 1-8
 # forward (every evaluation of a chain), on both sides: those points then
 # add exactly 0 to every gradient. Forward checks are not masked.
 FLIP_TAU = 2e-6
-# peaks of one H100 SXM (the on-chip-measurement guide): float32 FMAs
+# peaks of one H100 SXM (NVIDIA's H100 datasheet): float32 FMAs
 # outside the tensor cores, TF32 tensor cores (dense), device memory
 F32_FLOPS, TF32_FLOPS, HBM_BYTES = 67e12, 495e12, 3.35e12
 SOURCE = {"warp_fwd": "warp.cu", "warp_bwd": "warp.cu",
