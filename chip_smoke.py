@@ -44,8 +44,9 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    the losses.
 
 Phase 1 also counts the tensor-core instructions (HMMA, HGMMA) in the two
-MLP libraries with ``cuobjdump -sass`` where the toolkit has it. Phase 2's
-gradient checks of the MLP kernels (``mlp_bwd``, ``chain_bwd``,
+MLP libraries with ``cuobjdump -sass`` where the toolkit has it, and
+measures the rate of the MLP tiles' instruction alone (``MMA_LOOP``).
+Phase 2's gradient checks of the MLP kernels (``mlp_bwd``, ``chain_bwd``,
 ``dense_bwd``) zero the cotangents of the points whose hidden
 pre-activations lie within roundoff of 0 (``flip_points``: there two right
 float32 computations may take different leaky-relu slopes) on both sides,
@@ -55,7 +56,11 @@ and print the share excluded; ``TOL`` is not loosened for it. Each
 with their f32-FMA bound share and achieved TFLOP/s) and a library
 yardstick: ``F.grid_sample`` and its autograd backward for the warp, the
 cuBLAS-backed plain stack for the MLP kernels, none for the loss and the
-lookup.
+lookup. Each line also gives the device time of every CUDA kernel that
+one call launches (``torch.profiler``; for the warp, the library call's
+too): for the MLP kernels the point kernel against the weight-gradient
+pass, for the small kernels the device time beside the per-call time,
+which their host-side launch path bounds.
 
 Prints one JSON line with the kernels' results, then the card's name and
 power limit, then ``{"ok": true, "device": {...}}`` last. Exits nonzero,
@@ -128,6 +133,49 @@ RAFT_LEVELS, RAFT_RADIUS = 4, 4
 # the synthetic raw track of the preprocessing phase (multiples of 32 for
 # MiDaS at the raw resolution)
 RAW_FRAMES, RAW_HW, PRE_GAPS = 8, (448, 768), (1, 2, 4)
+# the ceiling of the instruction the MLP tiles use: a loop of TF32
+# mma.sync.m16n8k8 on register operands, 16 independent accumulators a warp,
+# 4 blocks of 512 threads per SM; prints TFLOP/s
+MMA_LOOP = r"""
+#include <cstdio>
+#include <cuda_runtime.h>
+#include <stdint.h>
+__global__ void loop(float* out, int iters) {
+  float c[16][4] = {};
+  uint32_t a[4] = {threadIdx.x, 1u, 2u, 3u};
+  for (int it = 0; it < iters; ++it)
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      asm volatile(
+          "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+          "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+          : "+f"(c[j][0]), "+f"(c[j][1]), "+f"(c[j][2]), "+f"(c[j][3])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(it), "r"(j));
+  float s = 0.f;
+  for (int j = 0; j < 16; ++j) s += c[j][0] + c[j][1] + c[j][2] + c[j][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+int main() {
+  int sms = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, 0);
+  const int threads = 512, blocks = 4 * sms, iters = 4096;
+  float* out;
+  cudaMalloc(&out, sizeof(float) * blocks * threads);
+  loop<<<blocks, threads>>>(out, iters);
+  cudaEvent_t e0, e1;
+  cudaEventCreate(&e0);
+  cudaEventCreate(&e1);
+  cudaEventRecord(e0);
+  loop<<<blocks, threads>>>(out, iters);
+  cudaEventRecord(e1);
+  cudaEventSynchronize(e1);
+  float ms = 0.f;
+  cudaEventElapsedTime(&ms, e0, e1);
+  const double flops = 2.0 * 16 * 8 * 8 * 16.0 * iters * (threads / 32) * blocks;
+  printf("%.1f\n", flops / ms / 1e9);
+  return cudaGetLastError() == cudaSuccess ? 0 : 1;
+}
+"""
 
 
 def fail(msg: str) -> None:
@@ -160,6 +208,33 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_split(fn, reps: int = 3, tries: int = 3) -> str:
+    """The device time of each CUDA kernel that ``fn`` launches, per call
+    (``torch.profiler`` over ``reps`` calls): "name ms xlaunches, ...". A
+    profile that records no device activity (seen once on the lookup) is
+    taken again, up to ``tries`` times."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = sorted(((e.self_device_time_total / 1e3 / reps,
+                        e.count // reps,
+                        e.key.replace("(anonymous namespace)::", "")
+                        .replace("void ", "").split("(")[0])
+                       for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and e.self_device_time_total > 0), reverse=True)
+        if rows:
+            return ", ".join(f"{name} {ms:.4f} ms x{n}"
+                             for ms, n, name in rows)
+    return "none recorded by the profiler"
 
 
 def rel_err(a, b) -> tuple:
@@ -223,20 +298,66 @@ def zero_rows(near, *gs) -> list:
     return [torch.where(near[:, None], torch.zeros_like(g), g) for g in gs]
 
 
+def lookup_taps(coords, shapes, radius: int) -> int:
+    """Distinct pyramid values that the lookup at ``coords [B, H, W, 2]``
+    weighs, over the levels of ``shapes`` ((Hl, Wl) each): per point and
+    level the rows times the columns its window's taps fall on (each point
+    has a volume row of its own), clamping at the borders as the lookup
+    does, and a tap of weight 0 (a coordinate on the grid) not counted."""
+    import torch
+
+    offsets = torch.arange(-radius, radius + 1, dtype=coords.dtype,
+                           device=coords.device)
+    c = coords.reshape(-1, 2)
+    total = 0
+    for lvl, (hl, wl) in enumerate(shapes):
+        counts = []
+        for axis, size in ((1, hl), (0, wl)):
+            x = torch.clamp(c[:, axis:axis + 1] / 2.0 ** lvl + offsets, 0.0,
+                            size - 1.0)
+            x0 = torch.floor(x)
+            x1 = torch.where(x > x0, torch.clamp(x0 + 1, max=size - 1.0), x0)
+            s = torch.sort(torch.cat([x0, x1], 1), 1).values
+            counts.append(1 + (s[:, 1:] != s[:, :-1]).sum(1))
+        total += int((counts[0] * counts[1]).sum())
+    return total
+
+
 def mlp_flops(dims, n: int) -> float:
     """Float32 operations of one forward of the dense stack on n points (a
     multiply-add counts 2; the embedding and the activations not)."""
     return 2.0 * n * sum(a * b for a, b in zip(dims[:-1], dims[1:]))
 
 
+def build_mma_loop() -> str:
+    """Compile ``MMA_LOOP`` into the kernels' build directory; its path."""
+    from dynamic_video_depth_tpu_torch.ops.cuda import build
+
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = build.BUILD_DIR / "mma_loop.cu"
+    src.write_text(MMA_LOOP)
+    exe = build.BUILD_DIR / "mma_loop"
+    subprocess.run([build.nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-O3", "-o", str(exe), str(src)], check=True,
+                   capture_output=True, timeout=300)
+    return str(exe)
+
+
 def phase_build():
     """Build every kernel library at once (one nvcc each) and print the
-    compiler's register and spill report."""
+    compiler's register and spill report; measure the ceiling of the MLP
+    tiles' MMA instruction."""
     from dynamic_video_depth_tpu_torch.ops.cuda import KERNEL_MODULES, build
 
-    with ThreadPoolExecutor(len(KERNEL_MODULES)) as pool:
+    with ThreadPoolExecutor(len(KERNEL_MODULES) + 1) as pool:
+        loop = pool.submit(build_mma_loop)
         for future in [pool.submit(mod._lib) for mod in KERNEL_MODULES]:
             future.result()
+        exe = loop.result()
+    rate = subprocess.run([exe], check=True, capture_output=True, text=True,
+                          timeout=120).stdout.strip()
+    print(f"[mma] mma.sync.m16n8k8 TF32, operands in registers, 16 "
+          f"accumulators a warp: {rate} TFLOP/s", flush=True)
     for mod in KERNEL_MODULES:
         report = build.library_path(mod.LIBRARY, mod.SOURCES,
                                     mod.FLAGS).with_suffix(".ptxas.txt")
@@ -265,7 +386,7 @@ def phase_build():
 def report(results: dict, name: str, err: tuple, ms: float,
            plain_ms: float, what: str = "", variant: tuple = (),
            flops: float = 0.0, nbytes: float = 0.0,
-           library_ms=None, excluded=None) -> None:
+           library_ms=None, excluded=None, split: str = "") -> None:
     """Print one comparison, fail past the tolerance, and keep the worst
     error and the first timing of each kernel with its bound; ``variant``
     names the branch checked, as ``ops.cuda.launch_variants`` keys it.
@@ -273,7 +394,8 @@ def report(results: dict, name: str, err: tuple, ms: float,
     bound is 3xTF32 on the tensor cores, and its f32-FMA bound is printed
     too), ``nbytes`` the bytes a kernel must move (each input read once,
     each output written once); ``excluded`` the share of points whose
-    cotangents the flip mask zeroed."""
+    cotangents the flip mask zeroed; ``split`` the device time of each
+    CUDA kernel of one call (``device_split``)."""
     ok = err[1] <= TOL[name]
     bytes_ms = 1e3 * nbytes / HBM_BYTES
     ops_ms = 1e3 * 3.0 * flops / TF32_FLOPS
@@ -289,6 +411,8 @@ def report(results: dict, name: str, err: tuple, ms: float,
         extra += f", library {library_ms:.4f} ms"
     if excluded is not None:
         extra += f"; flip mask excluded {excluded:.3%} of points"
+    if split:
+        extra += f"; device time per call: {split}"
     print(f"[kernel] {name}{what}: max_abs_err {err[0]:.3e} rel {err[1]:.3e} "
           f"(tol {TOL[name]:.0e}) {'ok' if ok else 'FAIL'}; kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms{extra}", flush=True)
@@ -365,18 +489,29 @@ def phase_kernels_ab(dev, results: dict) -> None:
                                 padding_mode="border")
         nbytes = 4.0 * H * W * (2 * c + 2)
         what = f" [1,{H},{W},{c}]"
-        report(results, "warp_fwd", rel_err(out_k, out_p),
-               time_ms(lambda: warp_kernel.warp_forward_cuda(src, flow)),
+
+        def lib_fwd():
+            return F.grid_sample(src_nchw, grid, align_corners=True,
+                                 padding_mode="border")
+
+        def lib_bwd():
+            return torch.autograd.grad(lib_out, lib_src, g_nchw,
+                                       retain_graph=True)
+
+        def fwd():
+            return warp_kernel.warp_forward_cuda(src, flow)
+
+        def bwd():
+            return warp_kernel.warp_backward_cuda(g, flow)
+
+        report(results, "warp_fwd", rel_err(out_k, out_p), time_ms(fwd),
                time_ms(lambda: warp_kernel.backward_warp_plain(src, flow)),
-               what, (c,), nbytes=nbytes,
-               library_ms=time_ms(lambda: F.grid_sample(
-                   src_nchw, grid, align_corners=True,
-                   padding_mode="border")))
+               what, (c,), nbytes=nbytes, library_ms=time_ms(lib_fwd),
+               split=f"{device_split(fwd)}; library {device_split(lib_fwd)}")
         report(results, "warp_bwd", rel_err(dsrc_k, src_p.grad),
-               time_ms(lambda: warp_kernel.warp_backward_cuda(g, flow)),
-               time_ms(plain_bwd), what, (c,), nbytes=nbytes,
-               library_ms=time_ms(lambda: torch.autograd.grad(
-                   lib_out, lib_src, g_nchw, retain_graph=True)))
+               time_ms(bwd), time_ms(plain_bwd), what, (c,), nbytes=nbytes,
+               library_ms=time_ms(lib_bwd),
+               split=f"{device_split(bwd)}; library {device_split(lib_bwd)}")
 
     # kernel B at N = 224 * 384 with the canonical field's random weights
     ws, bs = field_weights(gen, dev)
@@ -413,12 +548,15 @@ def phase_kernels_ab(dev, results: dict) -> None:
            time_ms(lambda: mlp_kernel.mlp_forward_cuda(pts, ts, consts, ws,
                                                        bs)),
            fwd_plain_ms, flops=mlp_flops(dims, N_PTS),
-           library_ms=fwd_plain_ms)
+           library_ms=fwd_plain_ms, split=device_split(
+               lambda: mlp_kernel.mlp_forward_cuda(pts, ts, consts, ws, bs)))
     report(results, "mlp_bwd", bwd_err,
            time_ms(lambda: mlp_kernel.mlp_backward_cuda(
                pts, ts, consts, ws, bs, gm), reps=10),
            bwd_plain_ms, flops=3 * mlp_flops(dims, N_PTS),
-           library_ms=bwd_plain_ms, excluded=near.float().mean().item())
+           library_ms=bwd_plain_ms, excluded=near.float().mean().item(),
+           split=device_split(lambda: mlp_kernel.mlp_backward_cuda(
+               pts, ts, consts, ws, bs, gm)))
 
 
 def phase_kernel_c(dev, results: dict) -> None:
@@ -476,7 +614,8 @@ def phase_kernel_c(dev, results: dict) -> None:
                    key=lambda e: e[1]),
                time_ms(kernel_bwd, reps=5), plain_ms, what,
                (n_steps, n_evals), flops=3 * n_evals * mlp_flops(dims, N_PTS),
-               library_ms=plain_ms, excluded=near.float().mean().item())
+               library_ms=plain_ms, excluded=near.float().mean().item(),
+               split=device_split(kernel_bwd))
         del outs, want, leaves
 
 
@@ -542,17 +681,23 @@ def phase_kernel_d(dev, results: dict) -> None:
                 fail(f"loss_bwd{what}: non-finite gradient")
             # 13 input floats a pixel (gp1, w3, sf, flow, mask, depth); the
             # forward writes 4 sums, the backward 9 gradient floats a pixel
+            def fwd():
+                return loss_kernel.loss_forward_cuda(args, flags)
+
+            def bwd():
+                return loss_kernel.loss_backward_cuda(args, flags, cot)
+
+            def plain_fwd():
+                return loss_kernel.projection_loss_plain(*args, *cfg)
+
             report(results, "loss_fwd", rel_err_each(sums, ref.detach()),
-                   time_ms(lambda: loss_kernel.loss_forward_cuda(args,
-                                                                 flags)),
-                   time_ms(lambda: loss_kernel.projection_loss_plain(
-                       *args, *cfg)), what, nbytes=4.0 * 13 * h * w)
+                   time_ms(fwd), time_ms(plain_fwd), what,
+                   nbytes=4.0 * 13 * h * w, split=device_split(fwd))
             report(results, "loss_bwd",
                    max((rel_err(a, b) for a, b in zip(grads, ref_grads)),
                        key=lambda e: e[1]),
-                   time_ms(lambda: loss_kernel.loss_backward_cuda(
-                       args, flags, cot)), time_ms(plain_bwd), what,
-                   nbytes=4.0 * 22 * h * w)
+                   time_ms(bwd), time_ms(plain_bwd), what,
+                   nbytes=4.0 * 22 * h * w, split=device_split(bwd))
 
 
 def phase_kernels_new(dev, results: dict) -> None:
@@ -580,16 +725,18 @@ def phase_kernels_new(dev, results: dict) -> None:
     out = corr_kernel.lookup_forward_cuda(*args)
     ref = corr_kernel.lookup_correlation_plain(*args)
     torch.cuda.synchronize()
-    # bytes this lookup needs: per point and level the (2r + 2)^2 taps of
-    # its window (fewer where clamped), its coordinates, its output row
-    taps = 2 * h * w * RAFT_LEVELS * (2 * RAFT_RADIUS + 2) ** 2
+    # bytes this lookup needs: the distinct pyramid values that these
+    # coordinates' windows weigh, the coordinates, the output
+    taps = lookup_taps(args[1], [c.shape[2:] for c in pyramid], RAFT_RADIUS)
     outs = 2 * h * w * RAFT_LEVELS * (2 * RAFT_RADIUS + 1) ** 2
     report(results, "corr_lookup", rel_err(out, ref),
            time_ms(lambda: corr_kernel.lookup_forward_cuda(*args)),
            time_ms(lambda: corr_kernel.lookup_correlation_plain(*args)),
            f" [2,{h},{w}] L={RAFT_LEVELS} r={RAFT_RADIUS}",
            (RAFT_RADIUS, RAFT_LEVELS),
-           nbytes=4.0 * (taps + outs + 2 * h * w * 2))
+           nbytes=4.0 * (taps + outs + 2 * h * w * 2),
+           split=device_split(lambda: corr_kernel.lookup_forward_cuda(*args),
+                              reps=20))
 
     dims = [132] + [256] * 5 + [3]
     ws = [(torch.randn(b, a, generator=gen) * (2.0 / a) ** 0.5).to(dev)
@@ -615,14 +762,17 @@ def phase_kernels_new(dev, results: dict) -> None:
            rel_err(fwd_k, mlp_kernel.fused_mlp_plain(feat, ws, bs)),
            time_ms(lambda: mlp_kernel.dense_forward_cuda(feat, ws, bs)),
            fwd_plain_ms, f" [{N_PTS},132]", flops=mlp_flops(dims, N_PTS),
-           library_ms=fwd_plain_ms)
+           library_ms=fwd_plain_ms, split=device_split(
+               lambda: mlp_kernel.dense_forward_cuda(feat, ws, bs)))
     report(results, "dense_bwd",
            max((rel_err(k, p) for k, p in
                 zip([dfeat_k, *dws_k, *dbs_k], grads_p)), key=lambda e: e[1]),
            time_ms(lambda: mlp_kernel.dense_backward_cuda(feat, ws, bs, g),
                    reps=10),
            bwd_plain_ms, f" [{N_PTS},132]", flops=3 * mlp_flops(dims, N_PTS),
-           library_ms=bwd_plain_ms, excluded=near.float().mean().item())
+           library_ms=bwd_plain_ms, excluded=near.float().mean().item(),
+           split=device_split(
+               lambda: mlp_kernel.dense_backward_cuda(feat, ws, bs, g)))
 
 
 def phase_trainer(dev, workdir: str, label: str, extra: list, gaps: tuple,

@@ -25,8 +25,9 @@
 // runs in no order, so that carry is replaced by a scheme that is
 // deterministic and uses no float atomics:
 //   1. mlp_bwd_points: per 128-point tile, recompute the forward, write each
-//      layer's input activations A_l [N, in_l] and output gradients dZ_l
-//      [N, out_l] to scratch, and emit dpts [N,3] and dts [N,1] through the
+//      layer's input activations A_l [N, pad8(in_l)] and output gradients
+//      dZ_l [N, pad8(out_l)] to scratch (the padding zeros, so that every
+//      copy is 16 bytes), and emit dpts [N,3] and dts [N,1] through the
 //      embedding. The leaky-relu mask comes from the sign of the
 //      pre-activation, read as the sign of the stored activation (slope 0.2
 //      > 0 keeps signs, and z = 0 gives 0 >= 0, as _leaky_grad does).
@@ -214,8 +215,8 @@ int dvd_mlp_fwd(const float* pts, const float* ts, const float* consts,
 }
 
 // Gradients of sum(g * out): dpts [N,3], dts [N,1], dW[l], db[l]. A[l] and
-// dZ[l] are scratch of N x dims[l] and N x dims[l+1] floats; P is scratch of
-// S x max_l(dims[l+1] x (dims[l] + 1)) floats; packed of
+// dZ[l] are scratch of N x pad8(dims[l]) and N x pad8(dims[l+1]) floats; P
+// is scratch of S x max_l(dims[l+1] x (dims[l] + 1)) floats; packed of
 // twice the forward's (both operands).
 int dvd_mlp_bwd(const float* pts, const float* ts, const float* consts,
                 const void* const* W, const void* const* b, const int* dims,

@@ -32,10 +32,12 @@
 // ring of kStages slots in shared memory (one k8 step of up to 256
 // columns, 16 KB, per slot) by bulk async copies (TMA, issued by one
 // thread, completing on mbarriers), a pair of steps ahead and across layer
-// boundaries, so the next pair loads while the current one is multiplied. The forward packs each layer as [out][in] (F), the backward
-// also transposed (G). Scratch (A_l, dZ_l) leaves shared memory by
-// coalesced 16-byte copies after each layer, and the backward's leaky-relu
-// mask is applied in the same pass.
+// boundaries, so the next pair loads while the current one is multiplied.
+// The forward packs each layer as [out][in] (F), the backward also
+// transposed (G). Scratch (A_l, dZ_l) has the tile's padded widths (pad8,
+// the padding zeros) and leaves shared memory by coalesced 16-byte copies
+// after each layer; the backward's leaky-relu mask is applied in the same
+// pass.
 //
 // The weight gradient of a layer is dW = dZ^T A over all points. Instead of
 // the TPU's sequential-grid carry it is split over S chunks of points into
@@ -87,8 +89,8 @@ struct Walk {
 };
 
 struct Scratch {
-  float* A[kMaxLayers];   // [N, din[l]]  layer inputs
-  float* dZ[kMaxLayers];  // [N, dout[l]] gradients at layer outputs
+  float* A[kMaxLayers];   // [N, pad8(din[l])]  layer inputs
+  float* dZ[kMaxLayers];  // [N, pad8(dout[l])] gradients at layer outputs
 };
 
 __device__ __forceinline__ uint32_t to_tf32(float x) {
@@ -141,15 +143,6 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s),
                "l"(gmem)
-               : "memory");
-}
-
-// 4 bytes, or zeros when `bytes` is 0 (nothing is read then).
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
-                                          int bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(s),
-               "l"(gmem), "r"(bytes)
                : "memory");
 }
 
@@ -335,25 +328,17 @@ __device__ __forceinline__ void for_each_acc(int cols, float acc[4][4][4],
             8 * (nt0 + nt) + 2 * (lane & 3) + (e & 1), acc[mt][nt][e]);
 }
 
-// f(x, g) over the tile's first `rows` rows and `width` columns, x the
-// elements in Xs and g their index in the row-major [rows, width] block
-// that starts the tile's rows in a global [N, width] array: four
-// consecutive elements per call (float4, coalesced) when width % 4 == 0,
-// else one.
-template <typename F4, typename F1>
+// f(x, e) over the tile's first `rows` rows and `width` (a multiple of 8)
+// columns, four consecutive elements x of Xs per call: e indexes float4s
+// of the row-major [rows, width] block that starts the tile's rows in a
+// global [N, width] array (coalesced).
+template <typename F4>
 __device__ __forceinline__ void tile_rows(float* Xs, int rows, int width,
-                                          F4 f4, F1 f1) {
-  if ((width & 3) == 0) {
-    const int w4 = width >> 2;
-    for (int e = threadIdx.x; e < rows * w4; e += kThreads) {
-      const int p = e / w4, c = 4 * (e - p * w4);
-      f4(*(float4*)(Xs + p * kLdx + c), e);
-    }
-  } else {
-    for (int e = threadIdx.x; e < rows * width; e += kThreads) {
-      const int p = e / width, c = e - p * width;
-      f1(Xs[p * kLdx + c], e);
-    }
+                                          F4 f4) {
+  const int w4 = width >> 2;
+  for (int e = threadIdx.x; e < rows * w4; e += kThreads) {
+    const int p = e / w4, c = 4 * (e - p * w4);
+    f4(*(float4*)(Xs + p * kLdx + c), e);
   }
 }
 
@@ -361,8 +346,8 @@ __device__ __forceinline__ void tile_rows(float* Xs, int rows, int width,
 // of m) on the tile in Xs (complete and visible; rows valid rows, mts of
 // them this warp's m-tiles). Hidden layers: bias and leaky-relu, back into
 // Xs (zeros in the padded columns) and, given scratch, copied from there
-// to A[l + 1] (coalesced). The last layer of m: bias, to out [N, dout].
-// Each layer ends past a barrier.
+// to A[l + 1] with the padding (coalesced). The last layer of m: bias, to
+// out [N, dout]. Each layer ends past a barrier.
 __device__ __forceinline__ void forward_layers(const Mlp& m, const Walk& fw,
                                                float* Xs, Ring& ring,
                                                const Scratch* s, float* out,
@@ -386,10 +371,8 @@ __device__ __forceinline__ void forward_layers(const Mlp& m, const Walk& fw,
     });
     __syncthreads();
     if (s) {
-      float* A = s->A[l + 1] + (int64_t)p0 * no;
-      tile_rows(
-          Xs, rows, no, [&](float4& x, int e) { ((float4*)A)[e] = x; },
-          [&](float& x, int e) { A[e] = x; });
+      float4* A = (float4*)(s->A[l + 1] + (int64_t)p0 * pad8(no));
+      tile_rows(Xs, rows, pad8(no), [&](float4& x, int e) { A[e] = x; });
     }
   }
 }
@@ -419,21 +402,15 @@ __device__ __forceinline__ void backward_layers(const Mlp& m, const Walk& bw,
     });
     __syncthreads();
     if (l == 0) break;
-    const int ni = m.din[l];
-    const float* A = s.A[l] + (int64_t)p0 * ni;
-    float* dZ = s.dZ[l - 1] + (int64_t)p0 * ni;
-    tile_rows(
-        Xs, rows, ni,
-        [&](float4& x, int e) {
-          const float4 a = ((const float4*)A)[e];
-          x = make_float4(leaky_grad(x.x, a.x), leaky_grad(x.y, a.y),
-                          leaky_grad(x.z, a.z), leaky_grad(x.w, a.w));
-          ((float4*)dZ)[e] = x;
-        },
-        [&](float& x, int e) {
-          x = leaky_grad(x, A[e]);
-          dZ[e] = x;
-        });
+    const int ni = pad8(m.din[l]);
+    const float4* A = (const float4*)(s.A[l] + (int64_t)p0 * ni);
+    float4* dZ = (float4*)(s.dZ[l - 1] + (int64_t)p0 * ni);
+    tile_rows(Xs, rows, ni, [&](float4& x, int e) {
+      const float4 a = A[e];
+      x = make_float4(leaky_grad(x.x, a.x), leaky_grad(x.y, a.y),
+                      leaky_grad(x.z, a.z), leaky_grad(x.w, a.w));
+      dZ[e] = x;
+    });
     __syncthreads();
   }
 }
@@ -473,7 +450,7 @@ inline unsigned range_blocks(int N, int chunk) {
 }
 
 // Xs[p][n] = dZ_{L-1}[p][n] = value(p, n) for the tile (zeros past N and in
-// the padded columns), stored to scratch too.
+// the padded columns), stored to scratch too (with the padding).
 template <typename Fn>
 __device__ __forceinline__ void load_grad(const Mlp& m, const Scratch& s,
                                           float* Xs, int p0, int N,
@@ -483,11 +460,8 @@ __device__ __forceinline__ void load_grad(const Mlp& m, const Scratch& s,
   for (int e = threadIdx.x; e < kTile * np; e += kThreads) {
     const int p = e / np, n = e - p * np;
     const int gp = p0 + p;
-    float v = 0.0f;
-    if (gp < N && n < no) {
-      v = value(gp, n);
-      dZ[(int64_t)gp * no + n] = v;
-    }
+    const float v = gp < N && n < no ? value(gp, n) : 0.0f;
+    if (gp < N) dZ[(int64_t)gp * np + n] = v;
     Xs[p * kLdx + n] = v;
   }
 }
@@ -513,7 +487,7 @@ __device__ __forceinline__ float embed_feature(const float* __restrict__ k,
 }
 
 // Xs[p][c] = feature(p0 + p, c) for c < C0 (zeros past N and in the padded
-// columns up to pad8(C0)); given A0, also stored there ([N, C0]).
+// columns up to pad8(C0)); given A0, also stored there ([N, pad8(C0)]).
 template <typename Fn>
 __device__ __forceinline__ void feature_tile(int C0, int p0, int N,
                                              float* Xs, float* A0,
@@ -522,11 +496,8 @@ __device__ __forceinline__ void feature_tile(int C0, int p0, int N,
   for (int e = threadIdx.x; e < kTile * cp; e += kThreads) {
     const int p = e / cp, c = e - p * cp;
     const int gp = p0 + p;
-    float f = 0.0f;
-    if (gp < N && c < C0) {
-      f = feature(gp, p, c);
-      if (A0) A0[(int64_t)gp * C0 + c] = f;
-    }
+    const float f = gp < N && c < C0 ? feature(gp, p, c) : 0.0f;
+    if (A0 && gp < N) A0[(int64_t)gp * cp + c] = f;
     Xs[p * kLdx + c] = f;
   }
 }
@@ -670,29 +641,23 @@ inline cudaError_t allow_smem(const void* kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// Stage kDwPts rows of one operand from row p of the chunk [pb, pe):
-// S[pp][c] = X[p+pp][c0+c] for c0 + c < width (zeros outside), by 16-byte
-// copies when the width is a multiple of 4 (rows and tile offsets then
-// 16-byte aligned), else by 4-byte ones.
-template <bool kVec>
+// Stage kDwPts rows of one operand [N, ld] (ld a multiple of 8, so rows
+// and tile offsets are 16-byte aligned) from row p of the chunk [pb, pe):
+// S[pp][c] = X[p+pp][c0+c] for c0 + c < ld (zeros outside), by 16-byte
+// copies.
 __device__ __forceinline__ void dw_stage(float (*S)[kDwLd],
                                          const float* __restrict__ X, int p,
-                                         int pe, int width, int c0) {
-  constexpr int kW = kVec ? 4 : 1;  // floats per copy
-  constexpr int kPerRow = kDwTile / kW;
+                                         int pe, int ld, int c0) {
+  constexpr int kPerRow = kDwTile / 4;
 #pragma unroll
   for (int j = 0; j < kDwPts * kPerRow / kDwThreads; ++j) {
     const int e = threadIdx.x + kDwThreads * j;
-    const int pp = e / kPerRow, c = kW * (e - pp * kPerRow);
+    const int pp = e / kPerRow, c = 4 * (e - pp * kPerRow);
     const int gp = p + pp, x = c0 + c;
-    const bool in = gp < pe && x < width;
-    const float* src = in ? X + (int64_t)gp * width + x : X;
-    if (kVec) {
-      if (in) cp_async16(&S[pp][c], src);
-      else *(float4*)&S[pp][c] = make_float4(0.f, 0.f, 0.f, 0.f);
-    } else {
-      cp_async4(&S[pp][c], src, in ? 4 : 0);
-    }
+    if (gp < pe && x < ld)
+      cp_async16(&S[pp][c], X + (int64_t)gp * ld + x);
+    else
+      *(float4*)&S[pp][c] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
 
@@ -700,8 +665,8 @@ __device__ __forceinline__ void dw_stage(float (*S)[kDwLd],
 // k < K (3xTF32 MMAs over 32-point steps, double-buffered by cp.async; each
 // k8 step's MMAs go to zeroed accumulators, added to the sum rounded, as in
 // mma3), and P[s][n][K] = sum of dZ[p][n] in point order (the bias; k-tile
-// 0 only). Two blocks fit an SM.
-template <bool kVecZ, bool kVecA>
+// 0 only). dZ and A are scratch at the padded widths. Two blocks fit an
+// SM.
 __global__ void __launch_bounds__(kDwThreads, 2)
     mlp_dw_partial(const float* __restrict__ dZ, const float* __restrict__ A,
                    int N, int Nout, int K, int chunk,
@@ -724,8 +689,8 @@ __global__ void __launch_bounds__(kDwThreads, 2)
   float acc[4][4][4] = {};
   float bsum = 0.0f;
   auto stage = [&](int buf, int p) {
-    dw_stage<kVecZ>(Zs[buf], dZ, p, pe, Nout, n0);
-    dw_stage<kVecA>(As[buf], A, p, pe, K, k0);
+    dw_stage(Zs[buf], dZ, p, pe, pad8(Nout), n0);
+    dw_stage(As[buf], A, p, pe, pad8(K), k0);
   };
   if (steps > 0) stage(0, pb);
   cp_async_commit();
@@ -824,16 +789,10 @@ inline cudaError_t weight_grads(const Mlp& m, const Scratch& s, int N, int S,
   for (int l = 0; l < m.L; ++l) {
     const int K = m.din[l], Nout = m.dout[l];
     dim3 g2((Nout + kDwTile - 1) / kDwTile, (K + kDwTile - 1) / kDwTile, S);
-    // 16-byte staging for each operand whose width allows it
-    void (*kernel)(const float*, const float*, int, int, int, int, float*) =
-        Nout % 4 == 0 ? (K % 4 == 0 ? mlp_dw_partial<true, true>
-                                    : mlp_dw_partial<true, false>)
-                      : (K % 4 == 0 ? mlp_dw_partial<false, true>
-                                    : mlp_dw_partial<false, false>);
-    cudaError_t e = allow_smem((const void*)kernel, kDwSmem);
+    cudaError_t e = allow_smem((const void*)mlp_dw_partial, kDwSmem);
     if (e != cudaSuccess) return e;
-    kernel<<<g2, kDwThreads, kDwSmem, st>>>(s.dZ[l], s.A[l], N, Nout, K,
-                                            chunk, P);
+    mlp_dw_partial<<<g2, kDwThreads, kDwSmem, st>>>(s.dZ[l], s.A[l], N, Nout,
+                                                    K, chunk, P);
     const int64_t outs = (int64_t)Nout * (K + 1);
     mlp_dw_reduce<<<(unsigned)((outs + 255) / 256), 256, 0, st>>>(
         P, S, Nout, K, (float*)dW[l], (float*)db[l], accumulate);

@@ -27,7 +27,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
+    """The path of nvcc: on PATH, else the toolkit's default place."""
     found = shutil.which("nvcc")
     if found:
         return found
@@ -56,7 +57,7 @@ def load_library(name: str, sources: tuple, flags: tuple = ()) -> ctypes.CDLL:
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp),
+        cmd = [nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp),
                *(str(CSRC_DIR / s) for s in sources if s.endswith(".cu"))]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:

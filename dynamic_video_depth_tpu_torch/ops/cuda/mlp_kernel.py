@@ -188,14 +188,15 @@ def split_count(n: int) -> int:
 
 
 def backward_scratch(n: int, dims, device):
-    """The backward's scratch: every layer's inputs ``A_l [n, dims[l]]`` and
-    output gradients ``dZ_l [n, dims[l+1]]``, the weight-gradient partial
-    sums ``[S, max_l dims[l+1] (dims[l] + 1)]`` and the packed weights of
-    both operands."""
+    """The backward's scratch: every layer's inputs ``A_l [n,
+    pad8(dims[l])]`` and output gradients ``dZ_l [n, pad8(dims[l+1])]`` (the
+    kernels write the padding as zeros), the weight-gradient partial sums
+    ``[S, max_l dims[l+1] (dims[l] + 1)]`` and the packed weights of both
+    operands."""
     f32 = dict(device=device, dtype=torch.float32)
     layers = range(len(dims) - 1)
-    acts = [torch.empty((n, dims[i]), **f32) for i in layers]
-    dzs = [torch.empty((n, dims[i + 1]), **f32) for i in layers]
+    acts = [torch.empty((n, pad8(dims[i])), **f32) for i in layers]
+    dzs = [torch.empty((n, pad8(dims[i + 1])), **f32) for i in layers]
     part = max(dims[i + 1] * (dims[i] + 1) for i in layers)
     return (acts, dzs, torch.empty((split_count(n), part), **f32),
             packed_weights(dims, True, device))

@@ -105,8 +105,11 @@ def test_mlp_kernel_matches_plain(dev, n, dims, nfx, nft):
 
 
 @pytest.mark.parametrize("n,dims", [
-    (86016, [132, 256, 256, 256, 256, 256, 3]), (777, [20, 32, 32, 3])])
+    (86016, [132, 256, 256, 256, 256, 256, 3]), (777, [20, 32, 32, 3]),
+    (777, [21, 37, 19, 3])])
 def test_fused_mlp_kernel_matches_plain(dev, n, dims):
+    """Widths that are no multiple of 8 (the last case) pad the tiles and
+    the backward's scratch."""
     gen = torch.Generator().manual_seed(n)
     ws = [(torch.randn(b, a, generator=gen) * (2.0 / a) ** 0.5).to(dev)
           for a, b in zip(dims[:-1], dims[1:])]

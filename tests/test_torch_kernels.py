@@ -15,7 +15,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from chip_smoke import chain_features, flip_points, zero_rows
+from chip_smoke import FLIP_TAU, chain_features, flip_points, zero_rows
 from dynamic_video_depth_tpu.ops import embedding as jax_embedding
 from dynamic_video_depth_tpu.ops.pallas.mlp_kernel import fused_mlp_embed
 from dynamic_video_depth_tpu.ops.pallas.warp_kernel import fused_backward_warp
@@ -123,10 +123,13 @@ def test_sceneflow_features_match(rng):
 CHAIN_DIMS = [3 * (1 + 2 * 4) + (1 + 2 * 2), 32, 32, 32, 3]
 
 
-def _chain_parity(rng, n_steps, n_evals, masked):
+def _chain_parity(rng, n_steps, n_evals, monkeypatch=None):
     """fused_mlp_embed_chain at N=600, width 32, 2 layers, freqs 4/2, and
     the port's chain: the three outputs, and dpts, dts, ddt, dW, db from
-    random cotangents (with ``masked``, zeroed at the flip-mask points)."""
+    random cotangents, zeroed at the flip-mask points. Given
+    ``monkeypatch``, the port's chain takes the other leaky-relu slope at
+    every pre-activation that the mask covers, as another summation order
+    may."""
     from dynamic_video_depth_tpu.ops.pallas.mlp_kernel import (
         fused_mlp_embed_chain)
 
@@ -137,14 +140,22 @@ def _chain_parity(rng, n_steps, n_evals, masked):
     ws = [(rng.randn(a, b) * np.sqrt(2.0 / a)).astype(np.float32)
           for a, b in zip(dims[:-1], dims[1:])]
     bs = [(rng.randn(b) * 0.01).astype(np.float32) for b in dims[1:]]
-    gs = [rng.randn(n, 3).astype(np.float32) for _ in range(3)]
-    if masked:
-        ws_t = [torch.from_numpy(w.T.copy()) for w in ws]
-        bs_t = [torch.from_numpy(b) for b in bs]
-        near = flip_points(chain_features(
-            *map(torch.from_numpy, (pts, ts, dt)), ws_t, bs_t, 4, 2, True,
-            n_evals, sf_div), ws_t, bs_t)
-        gs = [g.numpy() for g in zero_rows(near, *map(torch.from_numpy, gs))]
+    ws_t = [torch.from_numpy(w.T.copy()) for w in ws]
+    bs_t = [torch.from_numpy(b) for b in bs]
+    near = flip_points(chain_features(
+        *map(torch.from_numpy, (pts, ts, dt)), ws_t, bs_t, 4, 2, True,
+        n_evals, sf_div), ws_t, bs_t)
+    gs = [g.numpy() for g in zero_rows(near, *(
+        torch.from_numpy(rng.randn(n, 3).astype(np.float32))
+        for _ in range(3)))]
+    flipped = []
+    if monkeypatch is not None:
+        def leaky_flipped(x):
+            close = x.abs() < FLIP_TAU * x.abs().max()
+            flipped.append(int(close.sum()))
+            return torch.where((x >= 0) != close, x, mlp_kernel.SLOPE * x)
+
+        monkeypatch.setattr(mlp_kernel, "leaky", leaky_flipped)
     consts = [jnp.asarray(c) for c in
               jax_embedding.sceneflow_embed_consts(4, 2, True)]
 
@@ -165,6 +176,7 @@ def _chain_parity(rng, n_steps, n_evals, masked):
         leaves[0], leaves[1], leaves[2], leaves[3:3 + nl], leaves[3 + nl:],
         4, 2, True, n_steps, n_evals, sf_div)
     sum((o * torch.from_numpy(g)).sum() for o, g in zip(outs, gs)).backward()
+    assert near.any() and (monkeypatch is None or sum(flipped) > 0)
     tol = dict(rtol=1e-4, atol=1e-6)
     for o, r in zip(outs, ref):
         np.testing.assert_allclose(o.detach().numpy(), np.asarray(r), **tol)
@@ -184,15 +196,22 @@ def _chain_parity(rng, n_steps, n_evals, masked):
 @pytest.mark.parametrize("n_steps,n_evals", [(1, 2), (2, 2), (3, 3), (4, 4)])
 def test_chain_matches_pallas_chain(rng, n_steps, n_evals):
     """fused_mlp_embed_chain at N=600, width 32, 2 layers, freqs 4/2: the
-    three outputs, and dpts, dts, ddt, dW, db from random cotangents."""
-    _chain_parity(rng, n_steps, n_evals, masked=False)
+    three outputs, and dpts, dts, ddt, dW, db from random cotangents, zeroed
+    at the flip-mask points. Unmasked, the gradients depend on the CPU's
+    summation order: point 272 has a pre-activation at 2.4e-7 of its
+    layer's max |z| in the first evaluation, and that one unit taking the
+    other slope moves dW about 2,400x past the tolerance, while every other
+    element stays within 0.12 of it."""
+    _chain_parity(rng, n_steps, n_evals)
 
 
 @pytest.mark.parametrize("n_steps,n_evals", [(2, 2), (4, 4)])
-def test_masked_chain_matches_pallas_chain(rng, n_steps, n_evals):
-    """With the card checks' flip mask on the cotangents, the port's plain
-    chain still matches the JAX package at the same tolerance."""
-    _chain_parity(rng, n_steps, n_evals, masked=True)
+def test_masked_chain_matches_pallas_chain(rng, monkeypatch, n_steps,
+                                           n_evals):
+    """The mask makes the check immune to flips: with the other leaky-relu
+    slope at every pre-activation it covers, the port's plain chain still
+    matches the JAX package at the same tolerance."""
+    _chain_parity(rng, n_steps, n_evals, monkeypatch)
 
 
 def test_flip_points_marks_exactly_the_near_zero_points():
