@@ -2,14 +2,19 @@
 """Smoke test of the PyTorch + CUDA port on one GPU.
 
 Run from the repo root with no arguments: ``python3 chip_smoke.py``.
+``--warp_only [--repo <checkout>]`` builds and times kernel A alone (for
+the package of another checkout: a before/after on one card) and prints no
+result.
 
 1. Builds the hand-written kernels (``dynamic_video_depth_tpu_torch/csrc``),
    one nvcc per library, all at once, and prints the card's name and power
-   limit.
+   limit and the launch floor (``[floor]``: an empty kernel through ctypes).
 2. Holds every kernel against its plain PyTorch version on the card, at the
    main paths' shapes, and times both: the warp (A) at 224x384 with 4
-   channels (the depth warp) and 3 (the fused loss's point warp), the
-   embedded MLP (B) at 224x384; the Euler-chain backward (C) at 86,016
+   channels (the depth warp) and 3 (the fused loss's point warp), at the
+   synthetic track's gap-2 and gap-8 flows and at random +-60 px flows,
+   with the host time of 1,000 calls (``[host]``); the embedded MLP (B) at
+   224x384; the Euler-chain backward (C) at 86,016
    points for (n_steps, n_evals) = (1, 2), (2, 2), (4, 4) and (8, 8), the
    chains of gaps 1, 2, 4 and 8; the projection-loss forward and backward
    (D) at 224x384 and 320x576 in the use_disp, MiDaS, warm-up and main
@@ -44,7 +49,8 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.
    the losses.
 
 Phase 1 also counts the tensor-core instructions (HMMA, HGMMA) in the two
-MLP libraries with ``cuobjdump -sass`` where the toolkit has it, and
+MLP libraries and the warp's shared atomics and global reductions with
+``cuobjdump -sass`` where the toolkit has it, and
 measures the rate of the MLP tiles' instruction alone (``MMA_LOOP``).
 Phase 2's gradient checks of the MLP kernels (``mlp_bwd``, ``chain_bwd``,
 ``dense_bwd``) zero the cotangents of the points whose hidden
@@ -71,6 +77,7 @@ imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import math
 import os
@@ -176,6 +183,16 @@ int main() {
   return cudaGetLastError() == cudaSuccess ? 0 : 1;
 }
 """
+# the launch floor: an empty kernel, one block, launched through ctypes as
+# the kernels' wrappers launch theirs
+EMPTY = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int dvd_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+"""
 
 
 def fail(msg: str) -> None:
@@ -212,9 +229,12 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 def device_split(fn, reps: int = 3, tries: int = 3) -> str:
     """The device time of each CUDA kernel that ``fn`` launches, per call
-    (``torch.profiler`` over ``reps`` calls): "name ms xlaunches, ...". A
-    profile that records no device activity (seen once on the lookup) is
-    taken again, up to ``tries`` times."""
+    (``torch.profiler`` over ``reps`` calls): "name ms xlaunches, ...". The
+    profiler may record fewer launches of a short kernel than ran, so a
+    kernel's time per call is its mean time per recorded launch times its
+    launches per call (the recorded count over ``reps``, rounded, at least
+    1). A profile that records no device activity (seen once on the
+    lookup) is taken again, up to ``tries`` times."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -224,13 +244,16 @@ def device_split(fn, reps: int = 3, tries: int = 3) -> str:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        rows = sorted(((e.self_device_time_total / 1e3 / reps,
-                        e.count // reps,
-                        e.key.replace("(anonymous namespace)::", "")
-                        .replace("void ", "").split("(")[0])
-                       for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA
-                       and e.self_device_time_total > 0), reverse=True)
+        rows = []
+        for e in prof.key_averages():
+            if (e.device_type != torch.autograd.DeviceType.CUDA
+                    or e.self_device_time_total <= 0):
+                continue
+            n = max(1, round(e.count / reps))
+            rows.append((e.self_device_time_total / 1e3 / e.count * n, n,
+                         e.key.replace("(anonymous namespace)::", "")
+                         .replace("void ", "").split("(")[0]))
+        rows.sort(reverse=True)
         if rows:
             return ", ".join(f"{name} {ms:.4f} ms x{n}"
                              for ms, n, name in rows)
@@ -343,30 +366,94 @@ def build_mma_loop() -> str:
     return str(exe)
 
 
-def phase_build():
+def sass_opcode(line: str) -> str:
+    """The opcode of one ``cuobjdump -sass`` instruction line
+    ("/*0070*/  @P0 RED.E.ADD.F32... ;  /* 0x... */" -> "RED.E.ADD.F32..."),
+    "" for any other line."""
+    if "*/" not in line:
+        return ""
+    tokens = line.split("*/", 1)[1].split()
+    if tokens and tokens[0].startswith("@"):
+        tokens = tokens[1:]
+    return tokens[0] if tokens and not tokens[0].startswith("/*") else ""
+
+
+def build_empty() -> str:
+    """Compile ``EMPTY`` into a shared library in the kernels' build
+    directory; its path."""
+    from dynamic_video_depth_tpu_torch.ops.cuda import build
+
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = build.BUILD_DIR / "empty.cu"
+    src.write_text(EMPTY)
+    lib = build.BUILD_DIR / "libempty.so"
+    subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
+                    str(src)], check=True, capture_output=True, timeout=300)
+    return str(lib)
+
+
+def launch_floor(path: str) -> dict:
+    """The empty kernel's device time (``device_split``), its per-call time
+    (``time_ms``) and the host time of one launch (``host_us``), launched
+    through ctypes on the current stream as kernel A's wrapper launches."""
+    import ctypes
+
+    import torch
+
+    from dynamic_video_depth_tpu_torch.ops.cuda import warp_kernel
+
+    fn = ctypes.CDLL(path).dvd_empty
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+
+    def launch():
+        if fn(warp_kernel.stream_handle(0)) != 0:
+            fail("the empty kernel did not launch")
+
+    floor = {"split": device_split(launch, reps=20), "ms": time_ms(launch),
+             "host_us": host_us(launch)}
+    print(f"[floor] empty kernel (1 block of 32 threads) through ctypes: "
+          f"device {floor['split']}; per call {floor['ms']:.4f} ms; host "
+          f"{floor['host_us']:.2f} µs per launch (1,000 back to back)",
+          flush=True)
+    return floor
+
+
+def phase_build(modules=None):
     """Build every kernel library at once (one nvcc each) and print the
-    compiler's register and spill report; measure the ceiling of the MLP
-    tiles' MMA instruction."""
+    compiler's register and spill report; measure the launch floor and the
+    ceiling of the MLP tiles' MMA instruction. ``modules`` limits the build
+    to those kernel modules, and then nothing else is measured."""
     from dynamic_video_depth_tpu_torch.ops.cuda import KERNEL_MODULES, build
 
-    with ThreadPoolExecutor(len(KERNEL_MODULES) + 1) as pool:
-        loop = pool.submit(build_mma_loop)
-        for future in [pool.submit(mod._lib) for mod in KERNEL_MODULES]:
+    only = modules is not None
+    modules = KERNEL_MODULES if modules is None else modules
+    with ThreadPoolExecutor(len(modules) + 2) as pool:
+        extra = [] if only else [pool.submit(build_mma_loop),
+                                 pool.submit(build_empty)]
+        for future in [pool.submit(mod._lib) for mod in modules]:
             future.result()
-        exe = loop.result()
-    rate = subprocess.run([exe], check=True, capture_output=True, text=True,
-                          timeout=120).stdout.strip()
-    print(f"[mma] mma.sync.m16n8k8 TF32, operands in registers, 16 "
-          f"accumulators a warp: {rate} TFLOP/s", flush=True)
-    for mod in KERNEL_MODULES:
+        paths = [f.result() for f in extra]
+    for mod in modules:
         report = build.library_path(mod.LIBRARY, mod.SOURCES,
                                     mod.FLAGS).with_suffix(".ptxas.txt")
         for line in report.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[ptxas {mod.LIBRARY}] {line.strip()}")
+    if only:
+        return
+    launch_floor(paths[1])
+    rate = subprocess.run([paths[0]], check=True, capture_output=True,
+                          text=True, timeout=120).stdout.strip()
+    print(f"[mma] mma.sync.m16n8k8 TF32, operands in registers, 16 "
+          f"accumulators a warp: {rate} TFLOP/s", flush=True)
+    # instructions counted per library: the MLP tiles' tensor-core ops, the
+    # warp's shared-memory atomics and global reductions
+    counted = {"dvd_mlp_embed": ("HMMA", "HGMMA"),
+               "dvd_mlp_chain": ("HMMA", "HGMMA"),
+               "dvd_warp": ("ATOMS", "REDG", "ATOMG")}
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for mod in KERNEL_MODULES:
-        if mod.LIBRARY not in ("dvd_mlp_embed", "dvd_mlp_chain"):
+        if mod.LIBRARY not in counted:
             continue
         lib = build.library_path(mod.LIBRARY, mod.SOURCES, mod.FLAGS)
         try:
@@ -376,11 +463,15 @@ def phase_build():
         except (OSError, subprocess.SubprocessError) as exc:
             print(f"[sass {mod.LIBRARY}] could not look: {exc}")
             continue
-        hmma = sum(" HMMA." in ln for ln in sass.splitlines())
-        hgmma = sum(" HGMMA." in ln for ln in sass.splitlines())
-        print(f"[sass {mod.LIBRARY}] tensor-core instructions: HMMA {hmma}, "
-              f"HGMMA {hgmma} (cuobjdump -sass)" if sass else
-              f"[sass {mod.LIBRARY}] could not look: cuobjdump gave nothing")
+        if not sass:
+            print(f"[sass {mod.LIBRARY}] could not look: cuobjdump gave "
+                  "nothing")
+            continue
+        found = collections.Counter(
+            op for op in map(sass_opcode, sass.splitlines())
+            if op.split(".")[0] in counted[mod.LIBRARY])
+        print(f"[sass {mod.LIBRARY}] {dict(sorted(found.items()))} "
+              f"(cuobjdump -sass)")
 
 
 def report(results: dict, name: str, err: tuple, ms: float,
@@ -447,71 +538,195 @@ def field_points(gen, dev, n: int = N_PTS):
     return pts.to(dev), torch.rand(n, 1, generator=gen).to(dev)
 
 
-def phase_kernels_ab(dev, results: dict) -> None:
-    """Kernels A and B against their plain versions at 224x384."""
+def time_ms_pair(fn, other, reps: int = 200) -> tuple:
+    """Median per-call times in ms of ``fn`` and ``other``, as ``time_ms``
+    takes them, in alternating calls: the host path of a small kernel
+    spreads by microseconds over a run, and alternating shares the drift."""
+    import torch
+
+    times = ([], [])
+    for i in range(2 * (reps + 3)):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        (other if i % 2 else fn)()
+        end.record()
+        torch.cuda.synchronize()
+        if i >= 6:
+            times[i % 2].append(start.elapsed_time(end))
+    return statistics.median(times[0]), statistics.median(times[1])
+
+
+def host_us(fn, calls: int = 1000) -> float:
+    """Host time of one call in µs: ``calls`` calls enqueued back to back,
+    host clock, one synchronize at the end."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return 1e6 * (time.perf_counter() - t) / calls
+
+
+def track_flows(h: int, w: int, gap: int, n: int = 1):
+    """``flow_1_2 [n, h, w, 2]`` (CPU) of the first ``n`` pairs at ``gap``
+    of the synthetic track with a moving object (``data/synthetic.py``, 10
+    frames): exact depth-induced flows, smooth but for the object's edges,
+    the traffic the train step warps by."""
+    import torch
+
+    from dynamic_video_depth_tpu_torch.data.synthetic import make_track
+
+    with tempfile.TemporaryDirectory() as root:
+        _, seq_dir = make_track(root, h=h, w=w, n_frames=10, gaps=(gap,),
+                                moving_object=True)
+        return torch.cat([torch.load(os.path.join(
+            seq_dir, f"shuffle_False_gap_{gap:02d}_sequence_{i:05d}.pt"))[
+                "flow_1_2"].float() for i in range(n)])
+
+
+def random_flow(b: int, h: int, w: int, seed: int = 0):
+    """Independent +-60 px flows per pixel (CPU), sending samples past every
+    border, with a first row whose targets land exactly on x = W-1: the
+    warp's worst case and correctness check."""
+    import torch
+
+    flow = 60.0 * torch.randn(b, h, w, 2,
+                              generator=torch.Generator().manual_seed(seed))
+    flow[:, 0, :, 0] = (w - 1) - torch.arange(w, dtype=torch.float32)
+    return flow
+
+
+def warp_flows(dev) -> dict:
+    """The flows kernel A is timed at, [1, 224, 384, 2] on the card: the
+    synthetic track's first gap-2 and gap-8 pair, and the random ±60 px
+    flow."""
+    return {"gap2": track_flows(H, W, 2).to(dev),
+            "gap8": track_flows(H, W, 8).to(dev),
+            "random60": random_flow(1, H, W).to(dev)}
+
+
+def window_share(warp_kernel, flow, c: int) -> tuple:
+    """The share of the warp backward's taps (four per pixel) that land in
+    their warp's window, and the shares of the warps (tile rows) that add
+    in 0 (no window), 1, 2 and 4 sub-steps (``warp_kernel.window_plan``)."""
+    import torch
+
+    _, h, w, _ = flow.shape
+    xs = torch.arange(w, device=flow.device)
+    ys = torch.arange(h, device=flow.device)[:, None]
+    org, plan = warp_kernel.window_plan(flow, c)
+    seg = xs // warp_kernel.TILE[0]
+    org, steps = org[:, :, seg], plan[:, :, seg]
+    x0 = torch.floor((xs + flow[..., 0]).clamp(0.0, w - 1.0)).long()
+    y0 = torch.floor((ys + flow[..., 1]).clamp(0.0, h - 1.0)).long()
+    size = (warp_kernel.WINDOW[0], warp_kernel.window_rows(c))
+    inside = []
+    for tx in (x0, (x0 + 1).clamp(max=w - 1)):
+        for ty in (y0, (y0 + 1).clamp(max=h - 1)):
+            lx, ly = tx - org[..., 0], ty - org[..., 1]
+            inside.append((steps > 0) & (lx >= 0) & (lx < size[0])
+                          & (ly >= 0) & (ly < size[1]))
+    rows = [(plan == k).float().mean().item() for k in (0, 1, 2, 4)]
+    return torch.stack(inside).float().mean().item(), rows
+
+
+def phase_kernel_a(dev, results: dict) -> None:
+    """Kernel A against its plain version at [1, 224, 384, C] for the depth
+    warp's C = 4 and the fused loss's C = 3, at every flow of
+    ``warp_flows`` (the gap-2 reading first: it is the JSON line's ``ms``);
+    the library yardstick is ``F.grid_sample`` and its autograd backward.
+    Then the host time of 1,000 back-to-back calls of each direction beside
+    the library's, at the gap-2 flow."""
     import torch
     import torch.nn.functional as F
 
-    from dynamic_video_depth_tpu_torch.ops.cuda import mlp_kernel, warp_kernel
-    from dynamic_video_depth_tpu_torch.ops.embedding import sceneflow_features
+    from dynamic_video_depth_tpu_torch.ops.cuda import warp_kernel
 
-    gen = torch.Generator().manual_seed(0)
-
-    # kernel A at [1, 224, 384, C] for the depth warp's C = 4 (the vector
-    # forward) and the fused loss's C = 3; flows of up to +-60 px send
-    # samples past every border, and a row of exact-border targets hits
-    # x == W-1
-    flow = (60.0 * torch.randn(1, H, W, 2, generator=gen)).to(dev)
+    gen = torch.Generator().manual_seed(1)
+    flows = warp_flows(dev)
     xs = torch.arange(W, device=dev, dtype=torch.float32)
-    flow[0, 0, :, 0] = (W - 1) - xs  # first row lands exactly on x = W-1
+    ys = torch.arange(H, device=dev, dtype=torch.float32)[:, None]
     for c in (4, 3):
         src = torch.randn(1, H, W, c, generator=gen).to(dev)
         g = torch.randn(1, H, W, c, generator=gen).to(dev)
-        out_k = warp_kernel.warp_forward_cuda(src, flow)
-        out_p = warp_kernel.backward_warp_plain(src, flow)
-        src_p = src.clone().requires_grad_(True)
-        (warp_kernel.backward_warp_plain(src_p, flow) * g).sum().backward()
-        dsrc_k = warp_kernel.warp_backward_cuda(g, flow)
-        torch.cuda.synchronize()
-
-        def plain_bwd():
-            s = src.clone().requires_grad_(True)
-            (warp_kernel.backward_warp_plain(s, flow) * g).sum().backward()
-
-        # the library yardstick: grid_sample on NCHW, prepared untimed
         src_nchw = src.permute(0, 3, 1, 2).contiguous()
         g_nchw = g.permute(0, 3, 1, 2).contiguous()
-        grid = torch.stack([2.0 * (xs + flow[..., 0]) / (W - 1) - 1.0,
-                            2.0 * (torch.arange(H, device=dev)[:, None]
-                                   + flow[..., 1]) / (H - 1) - 1.0], -1)
-        lib_src = src_nchw.clone().requires_grad_(True)
-        lib_out = F.grid_sample(lib_src, grid, align_corners=True,
-                                padding_mode="border")
         nbytes = 4.0 * H * W * (2 * c + 2)
-        what = f" [1,{H},{W},{c}]"
+        host = {}
+        for name, flow in flows.items():
+            out_k = warp_kernel.warp_forward_cuda(src, flow)
+            out_p = warp_kernel.backward_warp_plain(src, flow)
+            src_p = src.clone().requires_grad_(True)
+            (warp_kernel.backward_warp_plain(src_p, flow) * g).sum().backward()
+            dsrc_k = warp_kernel.warp_backward_cuda(g, flow)
+            torch.cuda.synchronize()
 
-        def lib_fwd():
-            return F.grid_sample(src_nchw, grid, align_corners=True,
-                                 padding_mode="border")
+            def plain_bwd():
+                s = src.clone().requires_grad_(True)
+                (warp_kernel.backward_warp_plain(s, flow) * g).sum().backward()
 
-        def lib_bwd():
-            return torch.autograd.grad(lib_out, lib_src, g_nchw,
-                                       retain_graph=True)
+            # the library yardstick: grid_sample on NCHW, prepared untimed
+            grid = torch.stack([2.0 * (xs + flow[..., 0]) / (W - 1) - 1.0,
+                                2.0 * (ys + flow[..., 1]) / (H - 1) - 1.0],
+                               -1)
+            lib_src = src_nchw.clone().requires_grad_(True)
+            lib_out = F.grid_sample(lib_src, grid, align_corners=True,
+                                    padding_mode="border")
 
-        def fwd():
-            return warp_kernel.warp_forward_cuda(src, flow)
+            def lib_fwd():
+                return F.grid_sample(src_nchw, grid, align_corners=True,
+                                     padding_mode="border")
 
-        def bwd():
-            return warp_kernel.warp_backward_cuda(g, flow)
+            def lib_bwd():
+                return torch.autograd.grad(lib_out, lib_src, g_nchw,
+                                           retain_graph=True)
 
-        report(results, "warp_fwd", rel_err(out_k, out_p), time_ms(fwd),
-               time_ms(lambda: warp_kernel.backward_warp_plain(src, flow)),
-               what, (c,), nbytes=nbytes, library_ms=time_ms(lib_fwd),
-               split=f"{device_split(fwd)}; library {device_split(lib_fwd)}")
-        report(results, "warp_bwd", rel_err(dsrc_k, src_p.grad),
-               time_ms(bwd), time_ms(plain_bwd), what, (c,), nbytes=nbytes,
-               library_ms=time_ms(lib_bwd),
-               split=f"{device_split(bwd)}; library {device_split(lib_bwd)}")
+            def fwd():
+                return warp_kernel.warp_forward_cuda(src, flow)
+
+            def bwd():
+                return warp_kernel.warp_backward_cuda(g, flow)
+
+            what = f" [1,{H},{W},{c}] flow={name}"
+            if hasattr(warp_kernel, "window_plan"):  # not the parent's
+                share, rows = window_share(warp_kernel, flow, c)
+                what += (f" (taps in a window {share:.2%}; rows by steps "
+                         f"0/1/2/4: "
+                         f"{'/'.join(f'{r:.1%}' for r in rows)})")
+            fwd_ms, lib_fwd_ms = time_ms_pair(fwd, lib_fwd)
+            bwd_ms, lib_bwd_ms = time_ms_pair(bwd, lib_bwd)
+            report(results, "warp_fwd", rel_err(out_k, out_p), fwd_ms,
+                   time_ms(lambda: warp_kernel.backward_warp_plain(src, flow)),
+                   what, (c,), nbytes=nbytes, library_ms=lib_fwd_ms,
+                   split=f"{device_split(fwd, reps=10)}; library "
+                         f"{device_split(lib_fwd, reps=10)}")
+            report(results, "warp_bwd", rel_err(dsrc_k, src_p.grad), bwd_ms,
+                   time_ms(plain_bwd), what, (c,), nbytes=nbytes,
+                   library_ms=lib_bwd_ms,
+                   split=f"{device_split(bwd, reps=10)}; library "
+                         f"{device_split(lib_bwd, reps=10)}")
+            if name == "gap2":
+                host = {"warp_fwd": (host_us(fwd), host_us(lib_fwd)),
+                        "warp_bwd": (host_us(bwd), host_us(lib_bwd))}
+        for kernel, (ours, lib) in host.items():
+            lib_name = "F.grid_sample" + " backward" * (kernel == "warp_bwd")
+            print(f"[host] {kernel} [1,{H},{W},{c}] flow=gap2: {ours:.2f} µs "
+                  f"per call, {lib_name} {lib:.2f} µs (1,000 calls back to "
+                  f"back, one sync)", flush=True)
+
+
+def phase_kernel_b(dev, results: dict) -> None:
+    """Kernel B against its plain version at 224x384."""
+    import torch
+
+    from dynamic_video_depth_tpu_torch.ops.cuda import mlp_kernel
+    from dynamic_video_depth_tpu_torch.ops.embedding import sceneflow_features
+
+    gen = torch.Generator().manual_seed(0)
 
     # kernel B at N = 224 * 384 with the canonical field's random weights
     ws, bs = field_weights(gen, dev)
@@ -1165,7 +1380,16 @@ def phase_small_reference(dev) -> None:
 
 
 def main() -> None:
-    sys.path.insert(0, HERE)
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--warp_only", action="store_true",
+                        help="build and time kernel A alone (phase 2's warp "
+                        "lines and the [host] lines), print no result")
+    parser.add_argument("--repo", default=HERE,
+                        help="the checkout whose package is driven (with "
+                        "--warp_only: another tree's kernel A, for a "
+                        "before/after on one card)")
+    args = parser.parse_args()
+    sys.path.insert(0, os.path.abspath(args.repo))
     import torch
 
     if not torch.cuda.is_available():
@@ -1174,9 +1398,18 @@ def main() -> None:
     card = card_line()
     print(f"[card] {card}  torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
+    if args.warp_only:
+        from dynamic_video_depth_tpu_torch.ops.cuda import warp_kernel
+
+        print(f"[tree] {os.path.abspath(args.repo)}: kernel A alone",
+              flush=True)
+        phase_build([warp_kernel])
+        phase_kernel_a(dev, {})
+        return
     phase_build()
     results = {}
-    phase_kernels_ab(dev, results)
+    phase_kernel_a(dev, results)
+    phase_kernel_b(dev, results)
     phase_kernel_c(dev, results)
     phase_kernel_d(dev, results)
     phase_kernels_new(dev, results)

@@ -24,5 +24,5 @@ def launch_variants() -> dict:
     """Launches since the last reset by the shape that picks a kernel's
     branch: the warp's channel count, the chain's (n_steps, n_evals), the
     lookup's (radius, levels)."""
-    return dict(warp_kernel.variants + chain_kernel.variants
+    return dict(warp_kernel.launch_variants() + chain_kernel.variants
                 + corr_kernel.variants)

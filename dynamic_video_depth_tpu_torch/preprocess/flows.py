@@ -30,6 +30,7 @@ import torch
 
 from ..ops.grid_sample import backward_warp
 from ..ops.resize import resize_bicubic, resize_bilinear
+from ..runtime.device import resolve_device
 
 RAFT_RES = (288, 512)
 RAFT_ITERS = 20
@@ -77,7 +78,7 @@ def occlusion_masks(flow_1_2: torch.Tensor, flow_2_1: torch.Tensor,
 
 
 def make_raft_flow_batch_fn(ckpt_path: str | None = None,
-                            device="cpu") -> Callable:
+                            device="cuda") -> Callable:
     """Batched RAFT predictor ``(im1s, im2s) [N, H, W, 3] -> (f12s, f21s)``
     on ``device`` (tensors there, images in [0, 255]). Both directions ride
     one batch of ``2N``. The official checkpoint at ``ckpt_path`` is loaded
@@ -87,6 +88,7 @@ def make_raft_flow_batch_fn(ckpt_path: str | None = None,
     from ..models.raft import RAFT
     from ..runtime.weights import load_raft_checkpoint
 
+    device = resolve_device(device)
     # float32 as the JAX package computes it: no TF32 in cuDNN convolutions
     # or matrix products, whose error would grow over the iterations
     torch.backends.cudnn.allow_tf32 = False
@@ -107,7 +109,8 @@ def make_raft_flow_batch_fn(ckpt_path: str | None = None,
     return flow_fn
 
 
-def make_raft_flow_fn(ckpt_path: str | None = None, device="cpu") -> Callable:
+def make_raft_flow_fn(ckpt_path: str | None = None,
+                      device="cuda") -> Callable:
     """One pair: ``(im1, im2) [H, W, 3] -> (flow_1_2, flow_2_1) [H, W, 2]``,
     both directions in one batch of two."""
     batch_fn = make_raft_flow_batch_fn(ckpt_path, device)
@@ -119,10 +122,11 @@ def make_raft_flow_fn(ckpt_path: str | None = None, device="cpu") -> Callable:
     return flow_fn
 
 
-def _prep_raft_input(frame_data: dict, device="cpu") -> torch.Tensor:
+def _prep_raft_input(frame_data: dict, device="cuda") -> torch.Tensor:
     """Original-resolution frame -> ``[H, W, 3]`` float image in [0, 255]
     at ``RAFT_RES`` on ``device`` (reference: generate_flows.py:120-122):
     bilinear, align_corners=False, no antialias."""
+    device = resolve_device(device)
     img = torch.from_numpy(np.asarray(frame_data["img_orig"], np.float32))
     img = img.to(device) * 255.0
     return resize_bilinear(img[None], RAFT_RES, False)[0]
@@ -139,7 +143,7 @@ def postprocess_pair(f12: torch.Tensor, f21: torch.Tensor, out_hw) -> dict:
     return {k: v.cpu().numpy() for k, v in out.items()}
 
 
-def generate_pair(flow_fn, im1_data: dict, im2_data: dict, device="cpu"):
+def generate_pair(flow_fn, im1_data: dict, im2_data: dict, device="cuda"):
     """One pair's flows + masks at the frame working resolution; ``flow_fn``
     runs on ``device``."""
     h, w = im1_data["img"].shape[:2]
@@ -150,9 +154,10 @@ def generate_pair(flow_fn, im1_data: dict, im2_data: dict, device="cpu"):
 
 def process_track(frame_dir: str, out_dir: str,
                   gaps: Sequence[int] = (1, 2, 3, 4, 5, 6, 7, 8),
-                  ckpt_path: str | None = None, device="cpu"):
+                  ckpt_path: str | None = None, device="cuda"):
     """All (frame, gap) pairs of the track (reference :165-178), one pair
     per RAFT call on ``device``."""
+    device = resolve_device(device)
     os.makedirs(out_dir, exist_ok=True)
     files = sorted(glob(join(frame_dir, "frame_*.npz")))
     flow_fn = make_raft_flow_fn(ckpt_path, device)

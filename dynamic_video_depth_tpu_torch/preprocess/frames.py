@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..ops.resize import resize_bilinear
+from ..runtime.device import resolve_device
 
 
 def flip_world_to_cam(pose_w2c: np.ndarray) -> np.ndarray:
@@ -279,7 +280,7 @@ def process_davis_track(
 
 
 def make_midas_depth_fn(resize: Optional[tuple] = None,
-                        device="cpu") -> Callable:
+                        device="cuda") -> Callable:
     """A batched depth predictor ``[B, H, W, 3] in [0, 1] -> [B, H, W]``
     (numpy in and out) on ``device``: MiDaS with the pretrained checkpoint
     at ``runtime/weights.py::MIDAS_PRETRAIN_PATH`` when that file exists,
@@ -287,12 +288,12 @@ def make_midas_depth_fn(resize: Optional[tuple] = None,
     from ..models.midas import MidasNet
     from ..runtime.weights import MIDAS_PRETRAIN_PATH, load_midas_checkpoint
 
+    dev = resolve_device(device)
     # float32 as the JAX package computes it: no TF32 in cuDNN convolutions
     # or matrix products (preprocessing builds no train step, which would
     # turn it off)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device(device)
     net = MidasNet(non_negative=True, normalize_input=True, resize=resize,
                    generator=torch.Generator().manual_seed(0))
     if os.path.isfile(MIDAS_PRETRAIN_PATH):

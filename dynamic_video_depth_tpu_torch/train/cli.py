@@ -29,9 +29,8 @@ from __future__ import annotations
 import argparse
 from typing import Optional, Sequence
 
-import torch
-
 from ..data.davis_sequence import Dataset
+from ..runtime.device import resolve_device
 from .loop import Trainer
 from .losses import LossConfig
 from .step import (FUSED_MODES, SceneFlowMotionFieldStep, TrainStepConfig,
@@ -120,15 +119,6 @@ def step_config(opt) -> TrainStepConfig:
         use_pallas_sf_chain=opt.use_pallas_sf_chain,
         use_pallas_loss=opt.use_pallas_loss,
     )
-
-
-def resolve_device(name: str) -> torch.device:
-    """The device asked for; 'cuda' without a GPU raises (no silent CPU)."""
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda but no CUDA device is available; "
-                           "pass --device cpu to run on the CPU")
-    return device
 
 
 def build_trainer(argv: Optional[Sequence[str]] = None,

@@ -37,6 +37,7 @@ from ..models import (HourglassModelEmbed, MidasNet, SceneFlowFieldNet,
 from ..ops import (Camera, backward_warp, camera_to_world, depth_warp_stage,
                    projection_stage, unproject, unproject_camera)
 from ..ops.cuda.loss_kernel import pack_camera, projection_loss
+from ..runtime.device import resolve_device
 from .losses import (_MASK_EPS, LossConfig, acceleration_reg,
                      consistency_losses, disparity_vali_loss)
 
@@ -88,7 +89,7 @@ class SceneFlowMotionFieldStep:
     """Owns both nets and their optimizer and runs train/vali steps on
     batches of tensors already on ``device``."""
 
-    def __init__(self, cfg: TrainStepConfig, device="cpu", seed: int = 0):
+    def __init__(self, cfg: TrainStepConfig, device="cuda", seed: int = 0):
         net = effective_depth_net(cfg.depth_net, cfg.midas)
         if net not in DEPTH_NETS:
             raise ValueError(f"depth_net={cfg.depth_net!r} not in "
@@ -102,7 +103,7 @@ class SceneFlowMotionFieldStep:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.chain_fused = self._fused(cfg.use_pallas_sf_chain)
         self.loss_fused = self._fused(cfg.use_pallas_loss)
         gen = torch.Generator().manual_seed(seed)

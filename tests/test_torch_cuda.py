@@ -19,10 +19,13 @@ the same mask as the smoke's): there the leaky-relu slope may differ
 between two right float32 computations.
 """
 
+import functools
+
 import pytest
 import torch
 
-from chip_smoke import chain_features, flip_points, zero_rows
+from chip_smoke import (chain_features, flip_points, random_flow, track_flows,
+                        zero_rows)
 from dynamic_video_depth_tpu_torch.ops.cuda import (chain_kernel, corr_kernel,
                                                   loss_kernel, mlp_kernel,
                                                   warp_kernel)
@@ -47,12 +50,32 @@ def _rel(a, b):
     return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
 
 
-@pytest.mark.parametrize("c", [3, 4])
-def test_warp_kernel_matches_plain(dev, c):
+@functools.lru_cache(maxsize=None)
+def _warp_flow(kind, b, h, w):
+    """[b, h, w, 2] on the CPU: the synthetic track's gap-2 flow (the train
+    step's traffic), the random +-60 px flow, or 0 / +150 px alternating
+    between neighbouring columns (half of every tile's taps outside any
+    window)."""
+    if kind == "gap2":
+        return track_flows(h, w, 2, n=b)
+    if kind == "random60":
+        return random_flow(b, h, w, seed=h)
+    flow = torch.zeros(b, h, w, 2)
+    flow[..., 0] = 150.0 * (torch.arange(w) % 2)
+    return flow
+
+
+# shapes no multiple of the 32x8 tile; C = 3 and 4 take the vector paths,
+# other C the per-channel loop
+@pytest.mark.parametrize("kind", ["gap2", "random60", "alternating"])
+@pytest.mark.parametrize("h,w", [(37, 53), (224, 384), (320, 576)])
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("c", [1, 2, 3, 4, 5])
+def test_warp_kernel_matches_plain(dev, c, b, h, w, kind):
     gen = torch.Generator().manual_seed(c)
-    src = torch.randn(1, 224, 384, c, generator=gen).to(dev)
-    flow = (60.0 * torch.randn(1, 224, 384, 2, generator=gen)).to(dev)
-    g = torch.randn(1, 224, 384, c, generator=gen).to(dev)
+    src = torch.randn(b, h, w, c, generator=gen).to(dev)
+    flow = _warp_flow(kind, b, h, w).to(dev)
+    g = torch.randn(b, h, w, c, generator=gen).to(dev)
     s = src.clone().requires_grad_(True)
     ref = warp_kernel.backward_warp_plain(s, flow)
     (ref * g).sum().backward()
@@ -60,7 +83,8 @@ def test_warp_kernel_matches_plain(dev, c):
     out = warp_kernel.backward_warp(src.clone().requires_grad_(True), flow)
     assert _rel(out, ref) <= 1e-6
     assert _rel(warp_kernel.warp_backward_cuda(g, flow), s.grad) <= 1e-5
-    assert warp_kernel.launches["warp_fwd"] == 1
+    assert warp_kernel.launch_variants() == {("warp_fwd", c): 1,
+                                             ("warp_bwd", c): 1}
 
 
 def _stack(gen, dims, dev):

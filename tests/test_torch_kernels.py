@@ -54,6 +54,88 @@ def test_warp_matches_pallas_warp(rng, c):
                                rtol=1e-5, atol=1e-5)
 
 
+def _emulated_warp_grad(g, flow):
+    """The warp backward as the CUDA kernel decomposes it, in plain torch:
+    the output cut into the rows of ``TILE`` tiles (a warp each), each
+    row's window placed by ``window_plan``, every tap added into its row's
+    window when it lands there (and the row uses its window) and into the
+    image otherwise, then every window added into the image. Returns the
+    gradient and the share of taps in a window."""
+    b, h, w, c = g.shape
+    tile_x, win_x = warp_kernel.TILE[0], warp_kernel.WINDOW[0]
+    rows = warp_kernel.window_rows(c)
+    org, steps = warp_kernel.window_plan(flow, c)  # [B, H, tiles_x, ...]
+    xs, ys = torch.arange(w), torch.arange(h)[:, None]
+    bi, ti, tj = torch.broadcast_tensors(torch.arange(b)[:, None, None], ys,
+                                         xs // tile_x)
+    ox, oy, used = org[bi, ti, tj, 0], org[bi, ti, tj, 1], steps[bi, ti, tj] > 0
+    x = (xs + flow[..., 0]).clamp(0.0, w - 1.0)
+    y = (ys + flow[..., 1]).clamp(0.0, h - 1.0)
+    x0, y0 = torch.floor(x), torch.floor(y)
+    fx, fy = (x - x0)[..., None], (y - y0)[..., None]
+    x0, y0 = x0.long(), y0.long()
+    windows = torch.zeros(b, *org.shape[1:3], rows, win_x, c, dtype=g.dtype)
+    image = torch.zeros(b, h, w, c, dtype=g.dtype)
+    inside_taps = 0
+    for iy, wy in ((y0, 1.0 - fy), ((y0 + 1).clamp(max=h - 1), fy)):
+        for ix, wx in ((x0, 1.0 - fx), ((x0 + 1).clamp(max=w - 1), fx)):
+            v = (g * wy) * wx
+            lx, ly = ix - ox, iy - oy
+            inside = used & (lx >= 0) & (lx < win_x) & (ly >= 0) & (ly < rows)
+            inside_taps += int(inside.sum())
+            windows.index_put_((bi[inside], ti[inside], tj[inside],
+                                ly[inside], lx[inside]), v[inside],
+                               accumulate=True)
+            out = ~inside
+            image.index_put_((bi[out], iy[out], ix[out]), v[out],
+                             accumulate=True)
+    # the flush: each window cell that lies in the image adds into it
+    wb, gy, gx = torch.broadcast_tensors(
+        torch.arange(b)[:, None, None, None, None],
+        org[..., 1, None, None] + torch.arange(rows)[:, None],
+        org[..., 0, None, None] + torch.arange(win_x))
+    keep = (gy < h) & (gx < w)
+    assert not windows[~keep].any()  # no tap lands off the image
+    image.index_put_((wb[keep], gy[keep], gx[keep]), windows[keep],
+                     accumulate=True)
+    return image, inside_taps / (4 * b * h * w)
+
+
+@pytest.mark.parametrize("c", [3, 4])
+@pytest.mark.parametrize("h,w", [(37, 53), (64, 96)])
+@pytest.mark.parametrize("kind", ["smooth", "random", "alternating150",
+                                  "alternating12"])
+def test_warp_window_decomposition_is_exact(rng, kind, h, w, c):
+    """The kernel's row / window / straight-to-the-image split of the
+    backward adds up to the plain warp's gradient for any flow: the
+    synthetic track's gap-2 flow (most taps in a window), the random +-60
+    px flow and 0 / +150 px alternating between columns (at these widths
+    every row falls back: its targets may collide, or a tap is clamped at
+    the border), and 0 / +12 px alternating (rows in two steps, taps both
+    in and out of their window)."""
+    from chip_smoke import random_flow, track_flows
+
+    b = 2
+    if kind == "smooth":
+        flow = track_flows(h, w, 2, n=b)
+    elif kind == "random":
+        flow = random_flow(b, h, w, seed=h)
+    else:
+        flow = torch.zeros(b, h, w, 2)
+        flow[..., 0] = float(kind[len("alternating"):]) * (torch.arange(w) % 2)
+    # float64 sums on both sides: the check is of the split, not of the
+    # order of float32 additions (the flow stays float32, as the kernel's)
+    g = torch.from_numpy(rng.randn(b, h, w, c))
+    src = torch.zeros(b, h, w, c, dtype=torch.float64, requires_grad=True)
+    (warp_kernel.backward_warp_plain(src, flow) * g).sum().backward()
+    got, share = _emulated_warp_grad(g, flow)
+    err = (got - src.grad).abs().max() / src.grad.abs().max()
+    assert err <= 1e-6
+    assert {"smooth": share > 0.5, "random": share < 0.5,
+            "alternating150": share < 0.5,
+            "alternating12": 0.2 < share < 0.8}[kind], share
+
+
 def test_embedded_mlp_matches_pallas_mlp(rng):
     """fused_mlp_embed at N=1000, width 256: value, dpts, dts, dW, db."""
     n, dims = 1000, [132, 256, 256, 256, 256, 256, 3]

@@ -81,7 +81,8 @@ def test_warp_wrapper_never_routes_cuda_to_plain(monkeypatch):
     out.sum().backward()
     assert lib.calls == ["dvd_warp_fwd", "dvd_warp_bwd"]
     assert warp_kernel.launches == {"warp_fwd": 1, "warp_bwd": 1}
-    assert warp_kernel.variants == {("warp_fwd", 4): 1, ("warp_bwd", 4): 1}
+    assert warp_kernel.launch_variants() == {("warp_fwd", 4): 1,
+                                             ("warp_bwd", 4): 1}
 
 
 def test_mlp_wrapper_never_routes_cuda_to_plain(monkeypatch):
@@ -283,3 +284,45 @@ def test_other_kernels_reject_non_float32(monkeypatch, module):
                 torch.zeros(1, 6, 3), *(torch.zeros(6, 3),) * 3, 2, 2, 100.0)
         else:
             module.loss_forward_cuda(_loss_args(dtype=f64), 0)
+
+
+# every programmatic entry point of the port that takes a device
+DEVICE_ENTRY_POINTS = [
+    ("train.step", "SceneFlowMotionFieldStep"),
+    ("preprocess.flows", "make_raft_flow_batch_fn"),
+    ("preprocess.flows", "make_raft_flow_fn"),
+    ("preprocess.flows", "_prep_raft_input"),
+    ("preprocess.flows", "generate_pair"),
+    ("preprocess.flows", "process_track"),
+    ("preprocess.frames", "make_midas_depth_fn"),
+]
+
+
+def _call_with_default_device(fn, tmp_path):
+    from dynamic_video_depth_tpu_torch.train import TrainStepConfig
+
+    frame = {"img": torch.zeros(4, 6, 3).numpy(),
+             "img_orig": torch.zeros(4, 6, 3).numpy()}
+    args = {"SceneFlowMotionFieldStep": (TrainStepConfig(depth_net="tiny"),),
+            "_prep_raft_input": (frame,),
+            "generate_pair": (None, frame, frame),
+            "process_track": (str(tmp_path / "frames"),
+                              str(tmp_path / "flows"))}
+    return fn(*args.get(fn.__name__, ()))
+
+
+@pytest.mark.parametrize("module,name", DEVICE_ENTRY_POINTS)
+def test_entry_points_default_to_the_card(module, name, tmp_path):
+    """Each entry point runs on the card unless the caller asks for the
+    CPU, and a CUDA request without a GPU raises (no silent CPU)."""
+    import importlib
+    import inspect
+
+    fn = getattr(importlib.import_module(
+        f"dynamic_video_depth_tpu_torch.{module}"), name)
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: a CUDA request does not raise")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _call_with_default_device(fn, tmp_path)
+    assert not (tmp_path / "flows").exists()

@@ -156,7 +156,7 @@ def test_flow_utilities_match_jax(rng, monkeypatch):
     # test_preprocessing_resizes_match_jax
     small_raft(monkeypatch)
     frame = {"img_orig": rng.rand(90, 140, 3).astype(np.float32)}
-    ours = flows._prep_raft_input(frame)
+    ours = flows._prep_raft_input(frame, "cpu")
     assert ours.shape == (64, 96, 3)
     np.testing.assert_allclose(ours, jax_flows._prep_raft_input(frame),
                                rtol=0, atol=255 * 2e-4)
@@ -213,7 +213,7 @@ def stage12(tmp_path_factory):
     with pytest.MonkeyPatch.context() as mp:
         small_raft(mp)
         flows.process_track(frame_dir, join(root, "ours"), gaps=(1, 2),
-                            ckpt_path=ckpt)
+                            ckpt_path=ckpt, device="cpu")
         jax_flows.process_track(frame_dir, join(root, "ref"), gaps=(1, 2),
                                 ckpt_path=ckpt)
     return root, frame_dir
@@ -246,7 +246,8 @@ def test_flow_fn_and_generate_pair_match_jax(stage12, monkeypatch):
     ckpt = join(root, "raft-sintel.pth")
     im1, im2 = (_npz(join(frame_dir, f"frame_{i:05d}.npz")) for i in (0, 1))
     small_raft(monkeypatch)
-    ours = flows.generate_pair(flows.make_raft_flow_fn(ckpt), im1, im2)
+    ours = flows.generate_pair(flows.make_raft_flow_fn(ckpt, "cpu"), im1, im2,
+                               "cpu")
     ref = jax_flows.generate_pair(jax_flows.make_raft_flow_fn(ckpt), im1, im2)
     for k in ("flow_1_2", "flow_2_1"):
         assert ours[k].shape == (32, 48, 2)
@@ -288,7 +289,7 @@ def test_full_pipeline_to_train_step(tmp_path, rng, monkeypatch):
     frames.process_track(_raw_frames(rng, n=6, h=32, w=48), frame_dir,
                          stand_in_depth, max_width=48, multiple_of=16)
     small_raft(monkeypatch)
-    flows.process_track(frame_dir, flow_dir, gaps=(1, 2))
+    flows.process_track(frame_dir, flow_dir, gaps=(1, 2), device="cpu")
     pairs.pack_track(frame_dir, flow_dir, seq_dir, gaps=(1, 2))
 
     opt = argparse.Namespace(track_id="dog", gaps="1,2", subsample=False,
@@ -299,7 +300,7 @@ def test_full_pipeline_to_train_step(tmp_path, rng, monkeypatch):
         lr=1e-4, scene_lr_mul=10.0, depth_net="tiny", net_width=16,
         n_layers=1, n_freq_xyz=2, n_freq_t=1,
         loss=LossConfig(flow_mul=1.0, disp_mul=1.0, acc_mul=1.0,
-                        use_disp=True)))
+                        use_disp=True)), device="cpu")
     sample = ds[0]
     logs = step.train_step(to_device(sample, "cpu"), sample["steps"], False)
     assert np.isfinite(float(logs["loss"]))
