@@ -2,9 +2,10 @@
 """Smoke test of the PyTorch + CUDA port on one GPU.
 
 Run from the repo root with no arguments: ``python3 chip_smoke.py``.
-``--warp_only [--repo <checkout>]`` builds and times kernel A alone (for
-the package of another checkout: a before/after on one card) and prints no
-result.
+``--only {warp,loss,corr} [--repo <checkout>]`` builds and times one kernel
+family alone, phase 2's lines for it (kernel A, kernel D, the lookup), for
+the package of another checkout too (a before/after on one card), and
+prints no result; ``--warp_only`` is ``--only warp``.
 
 1. Builds the hand-written kernels (``dynamic_video_depth_tpu_torch/csrc``),
    one nvcc per library, all at once, and prints the card's name and power
@@ -18,9 +19,13 @@ result.
    points for (n_steps, n_evals) = (1, 2), (2, 2), (4, 4) and (8, 8), the
    chains of gaps 1, 2, 4 and 8; the projection-loss forward and backward
    (D) at 224x384 and 320x576 in the use_disp, MiDaS, warm-up and main
-   configurations; the RAFT correlation lookup at 288x512 (B = 2, a 36x64
-   grid, four levels, r = 4); fused_mlp forward and backward at 86,016
-   points, 132 -> 256 -> 256 x4 -> 3 (on no path, as in the JAX package).
+   configurations, at batch 2, at 37x53 and with fields 4 bytes past 16,
+   with its forward's run-to-run bit identity and the host time of 1,000
+   calls; the RAFT correlation lookup
+   at 288x512 (B = 2, a 36x64 grid, four levels, r = 4) beside its
+   yardstick, four ``F.grid_sample`` calls and a ``torch.cat``; fused_mlp
+   forward and backward at 86,016 points, 132 -> 256 -> 256 x4 -> 3 (on no
+   path, as in the JAX package).
 3. Drives the flagship configuration through the trainer's entry
    (``dynamic_video_depth_tpu_torch.train``, ``--midas --device cuda``, the
    fused paths on by default): MiDaS at full width with the fixture's biased
@@ -61,8 +66,9 @@ and print the share excluded; ``TOL`` is not loosened for it. Each
 3xTF32 tensor-core bound, 3 x FLOPs over 495 TFLOP/s, for the MLP kernels,
 with their f32-FMA bound share and achieved TFLOP/s) and a library
 yardstick: ``F.grid_sample`` and its autograd backward for the warp, the
-cuBLAS-backed plain stack for the MLP kernels, none for the loss and the
-lookup. Each line also gives the device time of every CUDA kernel that
+cuBLAS-backed plain stack for the MLP kernels, four ``F.grid_sample``
+calls (one a level) and a ``torch.cat`` for the lookup, none for the
+loss. Each line also gives the device time of every CUDA kernel that
 one call launches (``torch.profiler``; for the warp, the library call's
 too): for the MLP kernels the point kernel against the weight-gradient
 pass, for the small kernels the device time beside the per-call time,
@@ -834,38 +840,53 @@ def phase_kernel_c(dev, results: dict) -> None:
         del outs, want, leaves
 
 
-def loss_inputs(dev, h: int, w: int):
+def loss_inputs(dev, h: int, w: int, b: int = 1):
     """Projection-loss inputs on the card: world points a few metres out,
     dead pixels behind camera 2, warped z under the 1e-3 clip, far-field
-    pixels for the MiDaS masks."""
+    pixels for the MiDaS masks; a camera a batch row."""
     import torch
 
     gen = torch.Generator().manual_seed(h)
-    gp1 = torch.randn(1, h, w, 3, generator=gen) * 0.5
+    gp1 = torch.randn(b, h, w, 3, generator=gen) * 0.5
     gp1[..., 2] += 3.0
-    w3 = torch.randn(1, h, w, 3, generator=gen) * 0.5
+    w3 = torch.randn(b, h, w, 3, generator=gen) * 0.5
     w3[..., 2] += 3.0
-    sf = torch.randn(1, h, w, 3, generator=gen) * 0.05
+    sf = torch.randn(b, h, w, 3, generator=gen) * 0.05
     gp1[:, :8, :8, 2] = -5.0
     sf[:, :8, :8, 2] = 0.0
-    w3[:, 8:12, :16, 2] = torch.rand(1, 4, 16, generator=gen) * 1e-3
+    w3[:, 8:12, :16, 2] = torch.rand(b, 4, 16, generator=gen) * 1e-3
     w3[:, 20:24, 20:40, 2] = 150.0
-    depth = torch.rand(1, h, w, generator=gen) * 5.0 + 0.5
+    depth = torch.rand(b, h, w, generator=gen) * 5.0 + 0.5
     depth[:, 30:34, :50] = 120.0
-    cam = torch.zeros(1, 24)
+    cam = torch.zeros(b, 24)
     cam[:, 0:9] = torch.eye(3).reshape(9)
-    cam[:, 9:12] = torch.randn(1, 3, generator=gen) * 0.1
+    cam[:, 9:12] = torch.randn(b, 3, generator=gen) * 0.1
     cam[:, 12:21] = torch.tensor([0.8 * w, 0, w / 2, 0, 0.8 * w, h / 2,
                                   0, 0, 1.0])
-    data = (torch.randn(1, h, w, 2, generator=gen) * 2.0,
-            torch.rand(1, h, w, generator=gen), depth, cam)
+    data = (torch.randn(b, h, w, 2, generator=gen) * 2.0,
+            torch.rand(b, h, w, generator=gen), depth, cam)
     return [t.to(dev) for t in (gp1, w3, sf, *data)]
+
+
+def misaligned(t):
+    """``t`` copied into a buffer one float past its start: the same values
+    4 bytes past a 16-byte boundary."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+    buf[1:].copy_(t.reshape(-1))
+    return buf[1:].view(t.shape)
 
 
 def phase_kernel_d(dev, results: dict) -> None:
     """Kernel D forward and backward at [1,224,384] and [1,320,576] in the
     use_disp + MiDaS main, the same in warm-up, the disparity-ratio and the
-    plain-residual configurations."""
+    plain-residual configurations; then the main configuration at batch 2,
+    at 37x53 (rows of no multiple of 4 pixels) and with 224x384 fields 4
+    bytes past 16. The forward's profile shows no more kernels than
+    ``FORWARD_LAUNCHES`` (one, no memset) and its sums are bit-equal over
+    repeated calls; the host time of 1,000 calls of each direction at
+    224x384."""
     import torch
 
     from dynamic_video_depth_tpu_torch.ops.cuda import loss_kernel
@@ -874,13 +895,22 @@ def phase_kernel_d(dev, results: dict) -> None:
                "use_disp+midas warm": (True, False, True, True),
                "use_disp_ratio main": (False, True, False, False),
                "plain-residual main": (False, False, False, False)}
-    for h, w in ((H, W), WIDE):
-        args = loss_inputs(dev, h, w)
+    main = {"use_disp+midas main": configs["use_disp+midas main"]}
+    cases = [(1, H, W, False, configs), (1, *WIDE, False, configs),
+             (2, H, W, False, main), (1, 37, 53, False, main),
+             (1, H, W, True, main)]
+    # the parent's forward was a pixel kernel and a reduce
+    n_fwd = getattr(loss_kernel, "FORWARD_LAUNCHES", 2)
+    for b, h, w, shifted, cfgs in cases:
+        args = loss_inputs(dev, h, w, b)
+        if shifted:
+            args = [misaligned(t) for t in args[:6]] + args[6:]
         cot = (torch.randn(4, generator=torch.Generator().manual_seed(1))
-               / (h * w)).to(dev)
-        for label, cfg in configs.items():
+               / (b * h * w)).to(dev)
+        for label, cfg in cfgs.items():
             flags = loss_kernel.flag_bits(*cfg)
-            what = f" [1,{h},{w}] {label}"
+            what = (f" [{b},{h},{w}] {label}"
+                    + " (fields 4 bytes past 16)" * shifted)
             sums = loss_kernel.loss_forward_cuda(args, flags)
             grads = loss_kernel.loss_backward_cuda(args, flags, cot)
             leaves = [t.clone().requires_grad_(True) for t in args[:3]]
@@ -894,8 +924,11 @@ def phase_kernel_d(dev, results: dict) -> None:
             torch.cuda.synchronize()
             if not all(bool(torch.isfinite(g).all()) for g in grads):
                 fail(f"loss_bwd{what}: non-finite gradient")
-            # 13 input floats a pixel (gp1, w3, sf, flow, mask, depth); the
-            # forward writes 4 sums, the backward 9 gradient floats a pixel
+            again = [loss_kernel.loss_forward_cuda(args, flags)
+                     for _ in range(5)]
+            if not all(torch.equal(sums, s) for s in again):
+                fail(f"loss_fwd{what}: the sums differ between calls")
+
             def fwd():
                 return loss_kernel.loss_forward_cuda(args, flags)
 
@@ -905,25 +938,69 @@ def phase_kernel_d(dev, results: dict) -> None:
             def plain_fwd():
                 return loss_kernel.projection_loss_plain(*args, *cfg)
 
+            split = device_split(fwd, reps=10)
+            if split.count(" ms x") > n_fwd:
+                fail(f"loss_fwd{what} launched more than {n_fwd} kernels or "
+                     f"a memset: {split}")
+            # 13 input floats a pixel (gp1, w3, sf, flow, mask, depth); the
+            # forward writes 4 sums, the backward 9 gradient floats a pixel
             report(results, "loss_fwd", rel_err_each(sums, ref.detach()),
                    time_ms(fwd), time_ms(plain_fwd), what,
-                   nbytes=4.0 * 13 * h * w, split=device_split(fwd))
+                   nbytes=4.0 * 13 * b * h * w, split=split)
             report(results, "loss_bwd",
-                   max((rel_err(a, b) for a, b in zip(grads, ref_grads)),
+                   max((rel_err(k, p) for k, p in zip(grads, ref_grads)),
                        key=lambda e: e[1]),
                    time_ms(bwd), time_ms(plain_bwd), what,
-                   nbytes=4.0 * 22 * h * w, split=device_split(bwd))
+                   nbytes=4.0 * 22 * b * h * w,
+                   split=device_split(bwd, reps=10))
+            if (b, h, w, shifted) == (1, H, W, False) and \
+                    label == "use_disp+midas main":
+                print(f"[host] loss_fwd / loss_bwd{what}: {host_us(fwd):.2f}"
+                      f" / {host_us(bwd):.2f} µs per call (1,000 calls back "
+                      f"to back, one sync)", flush=True)
 
 
-def phase_kernels_new(dev, results: dict) -> None:
+def lookup_library(pyramid, coords, radius: int):
+    """The lookup's yardstick, used nowhere in the port: per level one
+    ``F.grid_sample`` (bilinear, border padding, align_corners) of the
+    ``[B N, 1, Hl, Wl]`` volumes at a ``[B N, K, K, 2]`` grid of the
+    window's coordinates, then one ``torch.cat`` of the levels; the grids
+    are made here, untimed. Returns the call."""
+    import torch
+    import torch.nn.functional as F
+
+    b, h, w, _ = coords.shape
+    k = 2 * radius + 1
+    off = torch.arange(-radius, radius + 1, dtype=coords.dtype,
+                       device=coords.device)
+    vols, grids = [], []
+    for lvl, corr in enumerate(pyramid):
+        hl, wl = corr.shape[2:]
+        c = coords.reshape(b * h * w, 1, 1, 2) / 2.0 ** lvl
+        x = (c[..., 0] + off[None, None, :]).expand(-1, k, k)
+        y = (c[..., 1] + off[None, :, None]).expand(-1, k, k)
+        grids.append(torch.stack([2.0 * x / max(wl - 1, 1) - 1.0,
+                                  2.0 * y / max(hl - 1, 1) - 1.0], -1))
+        vols.append(corr.reshape(b * h * w, 1, hl, wl))
+
+    def run():
+        return torch.cat([F.grid_sample(
+            v, g, mode="bilinear", padding_mode="border",
+            align_corners=True).reshape(b, h, w, k * k)
+            for v, g in zip(vols, grids)], -1)
+
+    return run
+
+
+def phase_lookup(dev, results: dict) -> None:
     """The correlation lookup at RAFT's 288x512 shapes (B = 2, a 36x64
-    grid, four levels, r = 4) with coordinates past every border, and
-    fused_mlp forward and backward at N = 86,016 with the canonical widths
-    132 -> 256 -> 256 x4 -> 3, each against its plain version (the backward
-    against autograd of the plain stack)."""
+    grid, four levels, r = 4) with coordinates past every border, against
+    its plain gather and beside its yardstick (``lookup_library``: four
+    ``F.grid_sample`` calls and a ``torch.cat``), per call in alternating
+    calls and on the device."""
     import torch
 
-    from dynamic_video_depth_tpu_torch.ops.cuda import corr_kernel, mlp_kernel
+    from dynamic_video_depth_tpu_torch.ops.cuda import corr_kernel
 
     gen = torch.Generator().manual_seed(3)
     h, w = RAFT_GRID
@@ -939,20 +1016,41 @@ def phase_kernels_new(dev, results: dict) -> None:
     args = (pyramid, coords.to(dev), RAFT_RADIUS)
     out = corr_kernel.lookup_forward_cuda(*args)
     ref = corr_kernel.lookup_correlation_plain(*args)
+    library = lookup_library(*args)
+    lib_err = rel_err(library(), ref)
     torch.cuda.synchronize()
+
+    def kernel():
+        return corr_kernel.lookup_forward_cuda(*args)
+
     # bytes this lookup needs: the distinct pyramid values that these
     # coordinates' windows weigh, the coordinates, the output
     taps = lookup_taps(args[1], [c.shape[2:] for c in pyramid], RAFT_RADIUS)
     outs = 2 * h * w * RAFT_LEVELS * (2 * RAFT_RADIUS + 1) ** 2
-    report(results, "corr_lookup", rel_err(out, ref),
-           time_ms(lambda: corr_kernel.lookup_forward_cuda(*args)),
+    ms, lib_ms = time_ms_pair(kernel, library)
+    report(results, "corr_lookup", rel_err(out, ref), ms,
            time_ms(lambda: corr_kernel.lookup_correlation_plain(*args)),
            f" [2,{h},{w}] L={RAFT_LEVELS} r={RAFT_RADIUS}",
            (RAFT_RADIUS, RAFT_LEVELS),
-           nbytes=4.0 * (taps + outs + 2 * h * w * 2),
-           split=device_split(lambda: corr_kernel.lookup_forward_cuda(*args),
-                              reps=20))
+           nbytes=4.0 * (taps + outs + 2 * h * w * 2), library_ms=lib_ms,
+           split=f"{device_split(kernel, reps=20)}; library (4 x "
+                 f"F.grid_sample + torch.cat) "
+                 f"{device_split(library, reps=20)}")
+    print(f"[host] corr_lookup [2,{h},{w}]: {host_us(kernel):.2f} µs per "
+          f"call, library {host_us(library):.2f} µs (1,000 calls back to "
+          f"back, one sync); the library against the plain gather: max "
+          f"abs err {lib_err[0]:.3e} rel {lib_err[1]:.3e}", flush=True)
 
+
+def phase_dense(dev, results: dict) -> None:
+    """fused_mlp forward and backward at N = 86,016 with the canonical
+    widths 132 -> 256 -> 256 x4 -> 3 against the plain stack (the backward
+    against autograd of it)."""
+    import torch
+
+    from dynamic_video_depth_tpu_torch.ops.cuda import mlp_kernel
+
+    gen = torch.Generator().manual_seed(3)
     dims = [132] + [256] * 5 + [3]
     ws = [(torch.randn(b, a, generator=gen) * (2.0 / a) ** 0.5).to(dev)
           for a, b in zip(dims[:-1], dims[1:])]
@@ -1379,14 +1477,22 @@ def phase_small_reference(dev) -> None:
         fail(f"the slice on the card disagrees with the CPU: {logs}")
 
 
+# --only: the kernel family's module and phase
+ONLY = {"warp": ("warp_kernel", phase_kernel_a),
+        "loss": ("loss_kernel", phase_kernel_d),
+        "corr": ("corr_kernel", phase_lookup)}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--warp_only", action="store_true",
-                        help="build and time kernel A alone (phase 2's warp "
-                        "lines and the [host] lines), print no result")
+    parser.add_argument("--only", choices=sorted(ONLY),
+                        help="build and time one kernel family alone "
+                        "(phase 2's lines for it), print no result")
+    parser.add_argument("--warp_only", action="store_const", dest="only",
+                        const="warp", help="the same as --only warp")
     parser.add_argument("--repo", default=HERE,
                         help="the checkout whose package is driven (with "
-                        "--warp_only: another tree's kernel A, for a "
+                        "--only: another tree's kernels, for a "
                         "before/after on one card)")
     args = parser.parse_args()
     sys.path.insert(0, os.path.abspath(args.repo))
@@ -1398,13 +1504,15 @@ def main() -> None:
     card = card_line()
     print(f"[card] {card}  torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
-    if args.warp_only:
-        from dynamic_video_depth_tpu_torch.ops.cuda import warp_kernel
+    if args.only:
+        import importlib
 
-        print(f"[tree] {os.path.abspath(args.repo)}: kernel A alone",
+        module_name, phase = ONLY[args.only]
+        print(f"[tree] {os.path.abspath(args.repo)}: --only {args.only}",
               flush=True)
-        phase_build([warp_kernel])
-        phase_kernel_a(dev, {})
+        phase_build([importlib.import_module(
+            f"dynamic_video_depth_tpu_torch.ops.cuda.{module_name}")])
+        phase(dev, {})
         return
     phase_build()
     results = {}
@@ -1412,7 +1520,8 @@ def main() -> None:
     phase_kernel_b(dev, results)
     phase_kernel_c(dev, results)
     phase_kernel_d(dev, results)
-    phase_kernels_new(dev, results)
+    phase_lookup(dev, results)
+    phase_dense(dev, results)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as workdir:
         # 6 frames: 4 gap-1, 3 gap-2 and 1 gap-4 pairs per epoch

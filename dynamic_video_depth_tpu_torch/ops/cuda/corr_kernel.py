@@ -15,6 +15,10 @@ dy-major and the levels are concatenated in order.
 Dispatch: a CPU tensor takes the plain version (the CPU oracle); a CUDA
 tensor launches the kernel or raises. There is no other route. Nothing
 differentiates through the lookup (RAFT runs for inference only).
+
+The launch path does only comparisons for checks that pass, binds the
+library once and keeps the ctypes arrays of the level shapes and pointers
+per pyramid shape, so that the 20 lookups of a RAFT call build none.
 """
 
 from __future__ import annotations
@@ -32,6 +36,11 @@ SOURCES = ("corr_lookup.cu",)
 FLAGS = ()
 REPLACES = "dynamic_video_depth_tpu/ops/pallas/correlation.py:157"
 MAX_LEVELS = 8
+MAX_RADIUS = 7  # the kernel's compile-time radii
+_F32 = torch.float32
+_LIB = None
+# per level shapes ((Hl, Wl), ...): (pointer array, heights, widths)
+_ARRAYS = {}
 # launches since the last reset
 launches = {"corr_lookup": 0}
 # the same launches by (radius, levels): (kernel, r, L) -> launches
@@ -45,11 +54,12 @@ def reset_launches() -> None:
 
 
 def device_type(t: torch.Tensor) -> str:
-    return t.device.type
+    return "cuda" if t.is_cuda else t.device.type
 
 
-def stream_handle(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+def stream_handle(index: int) -> int:
+    """The current CUDA stream of device ``index``, as an integer."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def lookup_correlation_plain(pyramid: Sequence[torch.Tensor],
@@ -87,22 +97,39 @@ def lookup_correlation_plain(pyramid: Sequence[torch.Tensor],
 
 
 def _lib():
-    lib = build.load_library(LIBRARY, SOURCES, FLAGS)
-    if not getattr(lib, "_dvd_typed", False):
+    global _LIB
+    if _LIB is None:
+        lib = build.load_library(LIBRARY, SOURCES, FLAGS)
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.dvd_corr_lookup.argtypes = [p, p, p, i, p, i, i, i, p, p]
         lib.dvd_corr_lookup.restype = i
-        lib._dvd_typed = True
-    return lib
+        _LIB = lib
+    return _LIB
 
 
-def _check(pyramid, coords) -> None:
-    if coords.dim() != 4 or coords.shape[-1] != 2:
-        raise ValueError(f"corr lookup: coords {tuple(coords.shape)} is not "
+def _checked(pyramid, coords, radius: int) -> tuple:
+    """``(B, H, W, device index)`` of ``coords [B,H,W,2]`` and the levels
+    ``[B, H W, Hl, Wl]``, all float32 on one CUDA device; raises otherwise.
+    Checks that pass cost comparisons only."""
+    shape = coords.shape
+    if len(shape) == 4 and shape[3] == 2 and 1 <= len(pyramid) <= MAX_LEVELS \
+            and 0 <= radius <= MAX_RADIUS:
+        b, h, w, _ = shape
+        index = coords.get_device()
+        if coords.dtype == _F32 and device_type(coords) == "cuda" and all(
+                c.dim() == 4 and c.shape[0] == b and c.shape[1] == h * w
+                and c.dtype == _F32 and device_type(c) == "cuda"
+                and c.get_device() == index for c in pyramid):
+            return b, h, w, index
+    if len(shape) != 4 or shape[-1] != 2:
+        raise ValueError(f"corr lookup: coords {tuple(shape)} is not "
                          "[B,H,W,2]")
-    b, h, w, _ = coords.shape
     if not 1 <= len(pyramid) <= MAX_LEVELS:
         raise ValueError(f"corr lookup: takes 1..{MAX_LEVELS} levels")
+    if not 0 <= radius <= MAX_RADIUS:
+        raise ValueError(f"corr lookup kernel: radius {radius} is not in "
+                         f"0..{MAX_RADIUS}")
+    b, h, w, _ = shape
     for corr in pyramid:
         if corr.dim() != 4 or corr.shape[:2] != (b, h * w):
             raise ValueError(f"corr lookup: level {tuple(corr.shape)} is not "
@@ -111,32 +138,44 @@ def _check(pyramid, coords) -> None:
         if device_type(t) != "cuda":
             raise RuntimeError(f"corr lookup kernel: a tensor is on "
                                f"{t.device}, not a CUDA device")
-        if t.dtype != torch.float32:
+        if t.dtype != _F32:
             raise TypeError(f"corr lookup kernel: needs float32, got "
                             f"{t.dtype}")
-        if t.device != coords.device:
-            raise RuntimeError("corr lookup kernel: tensors on different "
-                               "devices")
+    raise RuntimeError("corr lookup kernel: tensors on different devices")
+
+
+def _arrays(levels) -> tuple:
+    """The ctypes arrays of the levels' pointers, heights and widths; those
+    of the shapes are kept per pyramid shape and the pointers filled in."""
+    key = tuple(c.shape[2:] for c in levels)
+    arrays = _ARRAYS.get(key)
+    if arrays is None:
+        ints = ctypes.c_int * len(key)
+        arrays = ((ctypes.c_void_p * len(key))(),
+                  ints(*(s[0] for s in key)), ints(*(s[1] for s in key)))
+        _ARRAYS[key] = arrays
+    for i, c in enumerate(levels):
+        arrays[0][i] = c.data_ptr()
+    return arrays
 
 
 def lookup_forward_cuda(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
                         radius: int = 4) -> torch.Tensor:
     """Launch the lookup kernel on the current stream."""
-    _check(pyramid, coords)
-    levels = [c.contiguous() for c in pyramid]
-    coords = coords.contiguous()
-    b, h, w, _ = coords.shape
+    b, h, w, index = _checked(pyramid, coords, radius)
+    levels = [c if c.is_contiguous() else c.contiguous() for c in pyramid]
+    if not coords.is_contiguous():
+        coords = coords.contiguous()
     n_levels = len(levels)
     k = 2 * radius + 1
     out = torch.empty((b, h, w, n_levels * k * k), device=coords.device,
-                      dtype=torch.float32)
-    ints = ctypes.c_int * n_levels
-    rc = _lib().dvd_corr_lookup(
-        (ctypes.c_void_p * n_levels)(*(c.data_ptr() for c in levels)),
-        ints(*(c.shape[2] for c in levels)), ints(*(c.shape[3] for c in levels)),
-        n_levels, coords.data_ptr(), b, h * w, radius, out.data_ptr(),
-        stream_handle(coords.device))
-    build.check(rc, "dvd_corr_lookup")
+                      dtype=_F32)
+    ptrs, heights, widths = _arrays(levels)
+    rc = _lib().dvd_corr_lookup(ptrs, heights, widths, n_levels,
+                                coords.data_ptr(), b, h * w, radius,
+                                out.data_ptr(), stream_handle(index))
+    if rc:
+        build.check(rc, "dvd_corr_lookup")
     launches["corr_lookup"] += 1
     variants["corr_lookup", radius, n_levels] += 1
     return out

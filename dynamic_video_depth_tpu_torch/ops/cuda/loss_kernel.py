@@ -9,6 +9,13 @@ differentiated by autograd.
 
 Dispatch: a CPU tensor takes the plain version (the CPU oracle); a CUDA
 tensor launches the kernels or raises. There is no other route.
+
+Each direction is one launch, a pixel a thread, for every shape and
+alignment. The forward sums across blocks inside its launch with a ticket
+counter and one partial a block, kept in a workspace per device and stream
+(``_work``) that is zeroed once and that the kernel leaves at zero. The
+launch path does only comparisons for checks that pass and binds the
+library once.
 """
 
 from __future__ import annotations
@@ -30,6 +37,13 @@ Z_DEGENERATE = 1e-3
 CLIP_MIN = 1e-3
 MIDAS_FAR = 100.0
 _MIDAS, _USE_DISP, _USE_DISP_RATIO, _WARM = 1, 2, 4, 8
+BLOCK_PIXELS = 256  # pixels of a batch row a block covers, one a thread
+FORWARD_LAUNCHES = 1  # kernels one forward call launches
+_F32 = torch.float32
+_LIB = None
+# the forward's workspace per (device, stream): a ticket counter (4 floats)
+# then one 4-float partial a block
+_WORK = {}
 # launches of each kernel since the last reset
 launches = {"loss_fwd": 0, "loss_bwd": 0}
 
@@ -40,11 +54,12 @@ def reset_launches() -> None:
 
 
 def device_type(t: torch.Tensor) -> str:
-    return t.device.type
+    return "cuda" if t.is_cuda else t.device.type
 
 
-def stream_handle(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+def stream_handle(index: int) -> int:
+    """The current CUDA stream of device ``index``, as an integer."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def pack_camera(cam: Camera) -> torch.Tensor:
@@ -114,44 +129,69 @@ def projection_loss_plain(gp1, w3, sf, flow, mask, depth_1, cam,
 
 
 def _lib():
-    lib = build.load_library(LIBRARY, SOURCES, FLAGS)
-    if not getattr(lib, "_dvd_typed", False):
+    global _LIB
+    if _LIB is None:
+        lib = build.load_library(LIBRARY, SOURCES, FLAGS)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dvd_loss_partials.argtypes = [i, i]
-        lib.dvd_loss_partials.restype = i
-        lib.dvd_loss_fwd.argtypes = [p] * 7 + [i] * 4 + [p, p, p]
+        lib.dvd_loss_fwd.argtypes = [p] * 7 + [i] * 4 + [p, i, p, p]
         lib.dvd_loss_fwd.restype = i
         lib.dvd_loss_bwd.argtypes = [p] * 7 + [i] * 4 + [p, p, p, p, p]
         lib.dvd_loss_bwd.restype = i
-        lib._dvd_typed = True
-    return lib
+        _LIB = lib
+    return _LIB
 
 
-def _check(tensors) -> tuple:
-    """Shapes, device and type of ``(gp1, w3, sf, flow, mask, depth_1,
-    cam)``; returns ``(B, H, W)``."""
-    gp1 = tensors[0]
-    if gp1.dim() != 4 or gp1.shape[-1] != 3:
-        raise ValueError(f"loss kernel: global_p1 {tuple(gp1.shape)} is not "
+_NAMES = ("global_p1", "warped_p2c2", "sf", "flow", "mask", "depth_1", "cam")
+
+
+def _shapes(b, h, w) -> tuple:
+    return ((b, h, w, 3), (b, h, w, 3), (b, h, w, 3), (b, h, w, 2),
+            (b, h, w), (b, h, w), (b, 24))
+
+
+def _checked(tensors) -> tuple:
+    """``(B, H, W, device index)`` of ``(gp1, w3, sf, flow, mask, depth_1,
+    cam)``, all float32 on one CUDA device at their shapes; raises
+    otherwise. Checks that pass cost comparisons only."""
+    shape = tensors[0].shape
+    if len(shape) == 4 and shape[3] == 3:
+        b, h, w, _ = shape
+        index = tensors[0].get_device()
+        if all(t.shape == s and t.dtype == _F32 and device_type(t) == "cuda"
+               and t.get_device() == index
+               for t, s in zip(tensors, _shapes(b, h, w))):
+            return b, h, w, index
+    if len(shape) != 4 or shape[3] != 3:
+        raise ValueError(f"loss kernel: global_p1 {tuple(shape)} is not "
                          "[B,H,W,3]")
-    b, h, w, _ = gp1.shape
-    shapes = ((b, h, w, 3), (b, h, w, 3), (b, h, w, 3), (b, h, w, 2),
-              (b, h, w), (b, h, w), (b, 24))
-    names = ("global_p1", "warped_p2c2", "sf", "flow", "mask", "depth_1",
-             "cam")
-    for name, t, shape in zip(names, tensors, shapes):
-        if tuple(t.shape) != shape:
+    for name, t, want in zip(_NAMES, tensors, _shapes(*shape[:3])):
+        if tuple(t.shape) != want:
             raise ValueError(f"loss kernel: {name} {tuple(t.shape)} is not "
-                             f"{list(shape)}")
+                             f"{list(want)}")
         if device_type(t) != "cuda":
             raise RuntimeError(f"loss kernel: {name} is on {t.device}, not a "
                                "CUDA device")
-        if t.dtype != torch.float32:
+        if t.dtype != _F32:
             raise TypeError(f"loss kernel: {name} must be float32, got "
                             f"{t.dtype}")
-        if t.device != gp1.device:
-            raise RuntimeError("loss kernel: tensors on different devices")
-    return b, h, w
+    raise RuntimeError("loss kernel: tensors on different devices")
+
+
+def _contiguous(tensors) -> list:
+    return [t if t.is_contiguous() else t.contiguous() for t in tensors]
+
+
+def _work(device: torch.device, stream: int, slots: int) -> torch.Tensor:
+    """The forward's workspace on ``device`` for launches on ``stream``: at
+    least ``slots`` partials; zeroed when made or grown (the counter starts
+    at 0 and every launch leaves it there)."""
+    key = (device, stream)
+    work = _WORK.get(key)
+    if work is None or work.numel() < 4 * (slots + 1):
+        work = torch.zeros(4 * (max(slots, 256) + 1), device=device,
+                           dtype=_F32)
+        _WORK[key] = work
+    return work
 
 
 def flag_bits(use_disp, use_disp_ratio, midas, warm) -> int:
@@ -162,37 +202,41 @@ def flag_bits(use_disp, use_disp_ratio, midas, warm) -> int:
 
 
 def loss_forward_cuda(tensors, flags: int) -> torch.Tensor:
-    """Launch the forward and its fixed-order reduce; returns ``[4]``."""
-    b, h, w = _check(tensors)
-    tensors = [t.contiguous() for t in tensors]
-    lib = _lib()
+    """Launch the forward (one kernel, its cross-block sum included);
+    returns ``[4]``."""
+    b, h, w, index = _checked(tensors)
+    tensors = _contiguous(tensors)
     dev = tensors[0].device
-    part = torch.empty((lib.dvd_loss_partials(b, h * w), 4), device=dev,
-                       dtype=torch.float32)
-    out = torch.empty(4, device=dev, dtype=torch.float32)
-    rc = lib.dvd_loss_fwd(*(t.data_ptr() for t in tensors), b, h, w, flags,
-                          part.data_ptr(), out.data_ptr(), stream_handle(dev))
-    build.check(rc, "dvd_loss_fwd")
+    stream = stream_handle(index)
+    work = _work(dev, stream, b * -(-(h * w) // BLOCK_PIXELS))
+    out = torch.empty(4, device=dev, dtype=_F32)
+    rc = _lib().dvd_loss_fwd(*(t.data_ptr() for t in tensors), b, h, w, flags,
+                             work.data_ptr(), work.numel() // 4 - 1,
+                             out.data_ptr(), stream)
+    if rc:
+        build.check(rc, "dvd_loss_fwd")
     launches["loss_fwd"] += 1
     return out
 
 
 def loss_backward_cuda(tensors, flags: int, cot: torch.Tensor):
     """Launch the backward; returns the gradients at ``(gp1, w3, sf)``."""
-    b, h, w = _check(tensors)
-    tensors = [t.contiguous() for t in tensors]
+    b, h, w, index = _checked(tensors)
+    tensors = _contiguous(tensors)
     dev = tensors[0].device
-    if cot.shape != (4,) or cot.dtype != torch.float32 or cot.device != dev:
+    if cot.shape != (4,) or cot.dtype != _F32 or cot.device != dev:
         raise ValueError(f"loss kernel: cotangent {tuple(cot.shape)} "
                          f"{cot.dtype} is not [4] float32 on {dev}")
-    cot = cot.contiguous()
-    grads = [torch.empty((b, h, w, 3), device=dev, dtype=torch.float32)
+    if not cot.is_contiguous():
+        cot = cot.contiguous()
+    grads = [torch.empty((b, h, w, 3), device=dev, dtype=_F32)
              for _ in range(3)]
     rc = _lib().dvd_loss_bwd(*(t.data_ptr() for t in tensors), b, h, w,
                              flags, cot.data_ptr(),
                              *(g.data_ptr() for g in grads),
-                             stream_handle(dev))
-    build.check(rc, "dvd_loss_bwd")
+                             stream_handle(index))
+    if rc:
+        build.check(rc, "dvd_loss_bwd")
     launches["loss_bwd"] += 1
     return grads
 

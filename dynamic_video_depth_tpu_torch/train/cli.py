@@ -49,7 +49,9 @@ def build_parser() -> argparse.ArgumentParser:
     a("--epoch", type=int, default=0)
     a("--epoch_batches", type=int, default=None)
     a("--vali_batches", type=int, default=None)
-    a("--batch_size", type=int, default=1)
+    a("--batch_size", type=int, default=16)
+    a("--no_batching", action="store_true",
+      help="one sample per step whatever --batch_size says")
     a("--log_time", action="store_true",
       help="kept for the recipe; every step line carries its time")
     a("--optim", default="adam", choices=["adam"])

@@ -1,8 +1,11 @@
 """Epoch loop (counterpart of ``dynamic_video_depth_tpu/train/loop.py``;
 reference models/netinterface.py:193-360).
 
-Each epoch walks a random order of fixed same-gap batches; ``warm`` is
-``epoch <= warm_sf``; each batch carries its own Euler step count. Every
+Each epoch walks a random order of the training samples, or, at
+``--batch_size`` above 1 without ``--no_batching``, of fixed same-gap
+batches; the rng draws and the index mapping are the JAX trainer's, so both
+visit the same pairs at the same seed. ``warm`` is ``epoch <= warm_sf``;
+each batch carries its own Euler step count. Every
 step's losses are fetched to the host once (one synchronisation per step)
 and printed; a validation pass follows each epoch.
 """
@@ -39,7 +42,11 @@ class Trainer:
         self.opt = opt
         self.on_epoch_end = on_epoch_end
         self.rng = np.random.RandomState(opt.manual_seed or 0)
-        self.groups = self._fixed_groups(max(opt.batch_size, 1))
+        batch_size = max(opt.batch_size, 1)
+        if batch_size > 1 and not opt.no_batching:
+            self.groups = self._fixed_groups(batch_size)
+        else:
+            self.groups = [(i,) for i in range(len(dataset_train))]
         if not self.groups:
             raise ValueError("no training batch: fewer pairs of one gap "
                              "than --batch_size")
@@ -59,11 +66,15 @@ class Trainer:
         return groups
 
     def epoch_order(self, n: int, epoch_batches: Optional[int]):
-        if epoch_batches is None:
-            return self.rng.permutation(n)
-        reps = math.ceil(epoch_batches / max(n, 1))
-        order = np.concatenate([self.rng.permutation(n) for _ in range(reps)])
-        return order[:epoch_batches]
+        """One permutation, replaced by ``epoch_batches`` of repeated ones
+        when that is given (the first draw is still made, as the JAX
+        trainer makes it)."""
+        order = self.rng.permutation(n)
+        if epoch_batches is not None:
+            reps = math.ceil(epoch_batches / max(n, 1))
+            order = np.concatenate([self.rng.permutation(n)
+                                    for _ in range(reps)])[:epoch_batches]
+        return order
 
     def train(self, start_epoch: int = 1):
         for epoch in range(start_epoch, self.opt.epoch + 1):

@@ -24,8 +24,8 @@ import functools
 import pytest
 import torch
 
-from chip_smoke import (chain_features, flip_points, random_flow, track_flows,
-                        zero_rows)
+from chip_smoke import (chain_features, flip_points, misaligned, random_flow,
+                        track_flows, zero_rows)
 from dynamic_video_depth_tpu_torch.ops.cuda import (chain_kernel, corr_kernel,
                                                   loss_kernel, mlp_kernel,
                                                   warp_kernel)
@@ -159,10 +159,13 @@ def test_fused_mlp_kernel_matches_plain(dev, n, dims):
         assert _rel(a, b) <= 1e-5
 
 
+# L (2r+1)^2 a multiple of 4 (float4 rows: 4 x 81, 4 x 49) or not (2 x 49,
+# 3 x 81); top levels smaller than the window (4x8 at 36x64, 1x1 at 8x12)
 @pytest.mark.parametrize("b,h,w,radius,levels", [
-    (2, 36, 64, 4, 4), (1, 16, 24, 3, 2)])
+    (2, 36, 64, 4, 4), (1, 16, 24, 3, 2), (1, 36, 64, 4, 4),
+    (1, 36, 64, 3, 4), (2, 8, 12, 4, 4), (1, 20, 28, 4, 3)])
 def test_corr_lookup_kernel_matches_plain(dev, b, h, w, radius, levels):
-    """At RAFT's 288x512 grid (36x64, four levels, r = 4) and a small one,
+    """At RAFT's 288x512 grid (36x64, four levels, r = 4) and smaller ones,
     with coordinates past every border."""
     gen = torch.Generator().manual_seed(h)
     pyr, hl, wl = [], h, w
@@ -272,19 +275,38 @@ def _loss_inputs(dev, b, h, w, seed):
     return [t.to(dev) for t in (gp1, w3, sf, flow, mask, depth, cam)]
 
 
-@pytest.mark.parametrize("h,w", [(224, 384), (320, 576)])
+@pytest.mark.parametrize("b,h,w", [(1, 224, 384), (2, 320, 576)])
+def test_loss_forward_is_bit_deterministic(dev, b, h, w):
+    """Kernel D's four sums are bit-equal over repeated calls: the
+    cross-block sum adds the blocks' partials in index order, whichever
+    block finishes last."""
+    args = _loss_inputs(dev, b, h, w, seed=h)
+    flags = loss_kernel.flag_bits(True, False, True, False)
+    first = loss_kernel.loss_forward_cuda(args, flags)
+    for _ in range(20):
+        assert torch.equal(loss_kernel.loss_forward_cuda(args, flags), first)
+
+
+# batch 2; a row of no multiple of 4 pixels (37x53); fields 4 bytes past 16
+@pytest.mark.parametrize("b,h,w,shifted", [
+    (1, 224, 384, False), (1, 320, 576, False), (2, 224, 384, False),
+    (1, 37, 53, False), (1, 224, 384, True)])
 @pytest.mark.parametrize("use_disp,use_disp_ratio,midas,warm", [
     (True, False, True, False), (True, False, True, True),
     (False, True, False, False), (False, False, False, False)])
-def test_loss_kernel_matches_plain(dev, h, w, use_disp, use_disp_ratio,
-                                   midas, warm):
-    args = _loss_inputs(dev, 1, h, w, seed=h)
+def test_loss_kernel_matches_plain(dev, b, h, w, shifted, use_disp,
+                                   use_disp_ratio, midas, warm):
+    args = _loss_inputs(dev, b, h, w, seed=h)
+    if shifted:
+        args = [misaligned(t) for t in args[:6]] + args[6:]
+        assert all(t.data_ptr() % 16 == 4 for t in args[:6])
     flags = (use_disp, use_disp_ratio, midas, warm)
     cot = (torch.randn(4, generator=torch.Generator().manual_seed(1))
-           / (h * w)).to(dev)
+           / (b * h * w)).to(dev)
 
     def run(fn):
-        leaves = [t.clone().requires_grad_(True) for t in args[:3]]
+        leaves = [(misaligned(t) if shifted else t.clone()).requires_grad_(
+            True) for t in args[:3]]
         sums = fn(*leaves, *args[3:], *flags)
         (sums * cot).sum().backward()
         return [sums.detach()] + [t.grad for t in leaves]
@@ -296,6 +318,6 @@ def test_loss_kernel_matches_plain(dev, h, w, use_disp, use_disp_ratio,
     # each of the four sums on its own: they span five orders of magnitude
     assert ((got[0] - want[0]).abs()
             / want[0].abs().clamp_min(1e-30)).max() <= 1e-5
-    for a, b in zip(got[1:], want[1:]):
-        assert torch.isfinite(a).all()
-        assert _rel(a, b) <= 1e-5
+    for k, p in zip(got[1:], want[1:]):
+        assert torch.isfinite(k).all()
+        assert _rel(k, p) <= 1e-5

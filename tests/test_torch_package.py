@@ -45,6 +45,7 @@ class _FakeLib:
 
     def __init__(self, rc=0):
         self.calls = []
+        self.args = []
         self.rc = rc
 
     def __getattr__(self, name):
@@ -53,6 +54,7 @@ class _FakeLib:
 
         def launch(*args):
             self.calls.append(name)
+            self.args.append(args)
             return self.rc
 
         return launch
@@ -205,24 +207,46 @@ def test_launch_variants_name_the_branch(monkeypatch):
     assert not any(cuda_ops.launch_counts().values())
 
 
-def _loss_args(dtype=torch.float32, requires_grad=False):
-    b, h, w = 1, 4, 5
-    gp1, w3, sf = (torch.randn(b, h, w, 3, dtype=dtype,
-                               requires_grad=requires_grad) for _ in range(3))
-    return (gp1, w3, sf, torch.zeros(b, h, w, 2), torch.ones(b, h, w),
-            torch.ones(b, h, w), torch.zeros(b, 24))
+def _loss_args(dtype=torch.float32, requires_grad=False, h=4, w=5,
+               offset=0):
+    """Loss inputs [1, h, w, ...]; ``offset`` > 0 puts each field that many
+    floats into a larger buffer, so that it starts off 16 bytes."""
+    b = 1
+
+    def field(*shape, fill=None):
+        n = b * h * w * (shape[0] if shape else 1)
+        buf = torch.randn(n + offset, dtype=dtype) if fill is None else \
+            torch.full((n + offset,), fill, dtype=dtype)
+        t = buf[offset:].view(b, h, w, *shape)
+        return t.detach().requires_grad_(requires_grad) if shape == (3,) \
+            else t
+
+    gp1, w3, sf = (field(3) for _ in range(3))
+    return (gp1, w3, sf, field(2, fill=0.0), field(fill=1.0),
+            field(fill=1.0), torch.zeros(b, 24))
 
 
-def test_loss_wrapper_never_routes_cuda_to_plain(monkeypatch):
+# rows of a multiple of 4 pixels on 16 bytes, a ragged row, fields 4 bytes
+# past 16: every shape and alignment launches the same kernels
+@pytest.mark.parametrize("h,w,offset", [(4, 5, 0), (3, 5, 0), (4, 5, 1)])
+def test_loss_wrapper_never_routes_cuda_to_plain(monkeypatch, h, w, offset):
+    """One launch each way, never the plain version; the forward's
+    workspace holds a partial for each block."""
     lib = _FakeLib()
     plain = _pretend_cuda(monkeypatch, loss_kernel, lib)
     monkeypatch.setattr(loss_kernel, "projection_loss_plain", plain)
     loss_kernel.reset_launches()
-    sums = loss_kernel.projection_loss(*_loss_args(requires_grad=True),
-                                       use_disp=True, midas=True)
+    args = _loss_args(requires_grad=True, h=h, w=w, offset=offset)
+    assert args[0].data_ptr() % 16 == 4 * offset
+    sums = loss_kernel.projection_loss(*args, use_disp=True, midas=True)
     sums.sum().backward()
-    assert lib.calls == ["dvd_loss_partials", "dvd_loss_fwd", "dvd_loss_bwd"]
+    assert lib.calls == ["dvd_loss_fwd", "dvd_loss_bwd"]
     assert loss_kernel.launches == {"loss_fwd": 1, "loss_bwd": 1}
+    # (pointers, B, H, W, flags, work, slots, ...)
+    fwd = lib.args[0]
+    assert fwd[8:10] == (h, w)
+    assert fwd[12] >= (h * w + loss_kernel.BLOCK_PIXELS - 1) \
+        // loss_kernel.BLOCK_PIXELS
 
 
 MODULES = [warp_kernel, mlp_kernel, chain_kernel, loss_kernel, corr_kernel]

@@ -129,7 +129,7 @@ CLI_BASE = ["--net", "scene_flow_motion_field", "--dataset",
             "davis_sequence", "--track_id", "dog", "--gaps", "1,2",
             "--epoch", "2", "--epoch_batches", "2", "--warm_sf", "1",
             "--lr", "1e-4", "--scene_lr_mul", "10", "--time_dependent",
-            "--use_disp", "--vali_batches", "2"]
+            "--use_disp", "--vali_batches", "2", "--batch_size", "1"]
 CLI_FLAGS = CLI_BASE + ["--depth_net", "tiny"]
 
 
