@@ -26,15 +26,26 @@ prints no result; ``--warp_only`` is ``--only warp``.
    yardstick, four ``F.grid_sample`` calls and a ``torch.cat``; fused_mlp
    forward and backward at 86,016 points, 132 -> 256 -> 256 x4 -> 3 (on no
    path, as in the JAX package).
-3. Drives the flagship configuration through the trainer's entry
-   (``dynamic_video_depth_tpu_torch.train``, ``--midas --device cuda``, the
-   fused paths on by default): MiDaS at full width with the fixture's biased
-   output conv, 224x384, batch 1, a warm-up epoch then a main epoch over
-   gaps 1, 2 and 4. It checks the losses (the main loss above 0: the
-   far-field masks are live), that the depth net stayed fixed during
-   warm-up, that both nets moved, that the path launched every kernel,
-   the warp at 3 channels among them, and that it launched the warp and
-   the chain only at channel counts and chains that phase 2 checked.
+3. Runs the canonical DAVIS recipe through the train entry
+   (``dynamic_video_depth_tpu_torch.train``): the flags of
+   ``experiments/davis/train_sequence.sh`` with ``--epoch 2 --warm_sf 1``,
+   ``--epoch_batches`` (every pair once), ``--vali_batches 2``, a synthetic
+   224x384 track over gaps 1, 2 and 4 and ``--manual_seed 0``: MiDaS at
+   full width with the fixture's biased output conv, the fused paths on,
+   checkpoints, loggers and visualization, then the chained test entry on
+   the card (``--test_template experiments/davis/test_cmd.txt``). It checks
+   the losses (the main loss above 0: the far-field masks are live), that
+   the depth net and its Adam stayed fixed during warm-up, that both nets
+   moved, that the path launched every kernel, the warp at 3 channels among
+   them, and only at channel counts and chains that phase 2 checked; that
+   the run's artifacts exist; that ``best.pt`` in a fresh step gives each
+   frame's depth of the test entry's npz bit for bit and a scene flow
+   within ``TOL`` of kernel B's plain version, and that the test entry
+   launched kernel B's forward once a frame; that ``--resume -1 --epoch 3``
+   restores ``checkpoint.pt`` bit for bit and trains epoch 3. Its
+   ``[recipe]`` line gives the test entry's time a frame, the seconds a
+   checkpoint save, the checkpoint sizes, the visualization seconds and
+   the share of each epoch's wall time outside the train steps.
 4. Drives the hourglass slice through the same entry with the fused paths
    off (``--use_pallas_sf_chain off --use_pallas_loss off``): kernels A and
    B per evaluation, over gaps 1 and 2, with the same checks and the
@@ -134,6 +145,9 @@ REPLACES = {"warp_fwd": PALLAS + "warp_kernel.py:257",
             "dense_fwd": PALLAS + "mlp_kernel.py:134",
             "dense_bwd": PALLAS + "mlp_kernel.py:184",
             "corr_lookup": PALLAS + "correlation.py:157"}
+# the canonical recipe and its chained test command (the smoke's phase 3)
+RECIPE = "experiments/davis/train_sequence.sh"
+TEST_TEMPLATE = "experiments/davis/test_cmd.txt"
 # kernels each path must launch; fused_mlp (dense_*) is on no path, as in
 # the JAX package, and is held in phase 2 only
 HOURGLASS_KERNELS = ("warp_fwd", "warp_bwd", "mlp_fwd", "mlp_bwd")
@@ -1088,44 +1102,33 @@ def phase_dense(dev, results: dict) -> None:
                lambda: mlp_kernel.dense_backward_cuda(feat, ws, bs, g)))
 
 
-def phase_trainer(dev, workdir: str, label: str, extra: list, gaps: tuple,
-                  n_frames: int, kernels: tuple, midas: bool = False):
-    """A warm-up epoch and a main epoch through the trainer's entry on a
-    224x384 synthetic track; returns the launch counts of that run and
-    its launches by variant (``ops.cuda.launch_variants``)."""
+def phase_trainer(dev, label: str, trainer, gaps: tuple, kernels: tuple,
+                  midas: bool = False):
+    """A warm-up epoch and a main epoch of a trainer that the entry built
+    on a 224x384 synthetic track; returns the launch counts of that run,
+    its launches by variant (``ops.cuda.launch_variants``) and each epoch's
+    wall time from the start of training to its last epoch-end hook."""
     import torch
 
     from dynamic_video_depth_tpu_torch.data.batches import to_device
-    from dynamic_video_depth_tpu_torch.data.synthetic import make_track
     from dynamic_video_depth_tpu_torch.ops import cuda as kernels_mod
     from dynamic_video_depth_tpu_torch.runtime.weights import (
         bias_midas_output)
-    from dynamic_video_depth_tpu_torch.train.cli import build_trainer
 
-    track = f"smoke_{label}"
-    make_track(workdir, track=track, n_frames=n_frames, h=H, w=W, gaps=gaps)
-    snaps = {}
+    snaps, walls = {}, {}
 
     def params(net):
         return [p.detach().clone() for p in net.parameters()]
 
     def on_epoch_end(epoch, trainer):
+        walls[epoch] = time.perf_counter()
         if epoch == 1:
             snaps["depth_warm"] = params(trainer.step.net_depth)
             snaps["adam_depth_warm"] = sum(
-                p in trainer.step.optimizer.state
+                p in trainer.step.opt_depth.state
                 for p in trainer.step.net_depth.parameters())
 
-    argv = ["--net", "scene_flow_motion_field", "--dataset", "davis_sequence",
-            "--data_root", workdir, "--track_id", track,
-            "--gaps", ",".join(map(str, gaps)),
-            "--epoch", "2", "--warm_sf", "1", "--batch_size", "1",
-            "--optim", "adam", "--lr", "1e-6", "--scene_lr_mul", "1000",
-            "--acc_mul", "1", "--disp_mul", "1", "--flow_mul", "1",
-            "--sf_mag_div", "100", "--time_dependent", "--use_disp",
-            "--log_time", "--vali_batches", "2", "--manual_seed", "0",
-            "--device", str(dev)] + extra
-    trainer = build_trainer(argv, on_epoch_end=on_epoch_end)
+    trainer.on_epoch_end = on_epoch_end
     step = trainer.step
     if midas:
         bias_midas_output(step.net_depth)
@@ -1133,10 +1136,12 @@ def phase_trainer(dev, workdir: str, label: str, extra: list, gaps: tuple,
     snaps["sf_0"] = params(step.net_sf)
     kernels_mod.reset_launches()
     torch.cuda.reset_peak_memory_stats()
+    walls[0] = time.perf_counter()
     trainer.train()
     torch.cuda.synchronize()
     counts = kernels_mod.launch_counts()
     variants = kernels_mod.launch_variants()
+    walls = {e: walls[e] - walls[e - 1] for e in walls if e}
 
     hist = trainer.history
     gaps_by_phase = {w: {r["gap"] for r in hist if r["warm"] == w}
@@ -1155,7 +1160,7 @@ def phase_trainer(dev, workdir: str, label: str, extra: list, gaps: tuple,
            zip(snaps["depth_0"], snaps["depth_warm"])):
         fail(f"{label}: the depth net changed during warm-up")
     if snaps["adam_depth_warm"]:
-        fail(f"{label}: the depth net's Adam group stepped during warm-up")
+        fail(f"{label}: the depth net's Adam stepped during warm-up")
     if all(torch.equal(a, b) for a, b in
            zip(snaps["depth_warm"], params(step.net_depth))):
         fail(f"{label}: the depth net did not move in the main epoch")
@@ -1190,6 +1195,223 @@ def phase_trainer(dev, workdir: str, label: str, extra: list, gaps: tuple,
           f"peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
           f"{counts}; by variant {variants}", flush=True)
+    return counts, variants, walls
+
+
+def track_pairs(root: str, track: str) -> int:
+    """The packed training pairs of a synthetic track, all gaps."""
+    import glob
+
+    return len(glob.glob(os.path.join(
+        root, "sequences_select_pairs_midas", track, "001", "*.pt")))
+
+
+def recipe_flags(track: str) -> list:
+    """The flags between ``python train.py`` and ``"$@"`` in
+    ``experiments/davis/train_sequence.sh``, ``${track}`` as ``track``."""
+    import shlex
+
+    with open(os.path.join(HERE, RECIPE)) as f:
+        body = f.read().split("python train.py", 1)[1].split('"$@"', 1)[0]
+    return shlex.split(body.replace("\\\n", " ").replace("${track}", track))
+
+
+def phase_hourglass(dev, workdir: str):
+    """The hourglass slice through the trainer's entry with the fused paths
+    off: kernels A and B per evaluation, gaps 1 and 2."""
+    from dynamic_video_depth_tpu_torch.data.synthetic import make_track
+    from dynamic_video_depth_tpu_torch.train.cli import build_trainer
+
+    track, gaps = "smoke_hourglass", (1, 2)
+    # 5 frames: 3 gap-1 and 2 gap-2 pairs per epoch
+    make_track(workdir, track=track, n_frames=5, h=H, w=W, gaps=gaps)
+    argv = ["--net", "scene_flow_motion_field", "--dataset", "davis_sequence",
+            "--data_root", workdir, "--track_id", track,
+            "--gaps", ",".join(map(str, gaps)),
+            "--epoch", "2", "--warm_sf", "1", "--batch_size", "1",
+            "--optim", "adam", "--lr", "1e-6", "--scene_lr_mul", "1000",
+            "--acc_mul", "1", "--disp_mul", "1", "--flow_mul", "1",
+            "--sf_mag_div", "100", "--time_dependent", "--use_disp",
+            "--log_time", "--vali_batches", "2", "--manual_seed", "0",
+            "--logdir", os.path.join(workdir, "runs"),
+            "--device", str(dev), "--use_pallas_sf_chain", "off",
+            "--use_pallas_loss", "off"]
+    counts, variants, _ = phase_trainer(dev, "hourglass",
+                                        build_trainer(argv), gaps,
+                                        HOURGLASS_KERNELS)
+    return counts, variants
+
+
+def state_equal(a, b) -> bool:
+    """Nested dicts/lists of tensors and numbers, equal bit for bit."""
+    import torch
+
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        return (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+                and a.shape == b.shape and a.dtype == b.dtype
+                and torch.equal(a.cpu(), b.cpu()))
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(state_equal(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(state_equal(x, y) for x, y in zip(a, b)))
+    return a == b
+
+
+def phase_recipe(dev, workdir: str, card: str):
+    """The canonical DAVIS recipe through the train entry: MiDaS at full
+    width (the fixture's biased output conv), 224x384, the flags of
+    ``experiments/davis/train_sequence.sh`` with two epochs (warm-up, main)
+    over gaps 1, 2 and 4, checkpoints, loggers and visualization, then the
+    chained test entry on the card. Checks the run's artifacts, that
+    ``best.pt`` in a fresh step gives every frame's depth of the test
+    entry's npz bit for bit and a scene flow that kernel B's plain version
+    gives too, that the test entry launched kernel B once a frame, and that
+    ``--resume -1`` loads ``checkpoint.pt`` bit for bit and trains on.
+    Returns the training run's launch counts and variants."""
+    import glob
+    from argparse import Namespace
+
+    import numpy as np
+    import torch
+
+    from dynamic_video_depth_tpu_torch.data.batches import to_device
+    from dynamic_video_depth_tpu_torch.data.synthetic import make_track
+    from dynamic_video_depth_tpu_torch.ops import Camera, unproject
+    from dynamic_video_depth_tpu_torch.ops.cuda import mlp_kernel
+    from dynamic_video_depth_tpu_torch.runtime.checkpoint import (
+        load_checkpoint, load_opt, read_checkpoint)
+    from dynamic_video_depth_tpu_torch.train.cli import build_run
+    from dynamic_video_depth_tpu_torch.train.scene_flow_motion_field import (
+        Model)
+
+    track, gaps = "smoke_recipe", (1, 2, 4)
+    # 6 frames: 8 pairs over gaps 1, 2 and 4, every pair once an epoch
+    make_track(workdir, track=track, n_frames=6, h=H, w=W, gaps=gaps)
+    n_pairs = track_pairs(workdir, track)
+    # flags a resumed run takes from its command line (UNIQUE_PARAMS)
+    common = ["--epoch_batches", str(n_pairs), "--vali_batches", "2",
+              "--batch_size", "1", "--device", str(dev)]
+    argv = recipe_flags(track) + common + [
+        "--epoch", "2", "--warm_sf", "1", "--data_root", workdir,
+        "--track_id", track, "--gaps", ",".join(map(str, gaps)),
+        "--logdir", os.path.join(workdir, "checkpoints"),
+        "--test_template", os.path.join(HERE, TEST_TEMPLATE),
+        "--manual_seed", "0"]
+    run = build_run(argv)
+    logdir = run.logdir
+    counts, variants, walls = phase_trainer(dev, "midas", run.trainer, gaps,
+                                            MIDAS_KERNELS, midas=True)
+    hist = run.trainer.history
+    t0 = time.perf_counter()
+    run.chain_test()
+    test_s = time.perf_counter() - t0
+
+    # the artifacts of the run and of its test entry
+    vali_frames = len(run.trainer.dataset_vali)
+    want = ["checkpoint.pt", "best.pt", "nets/0001.pt", "nets/0002.pt",
+            "opt.json", "opt.txt", "epoch_loss.csv", "html/progress.html",
+            "html/progress.json", "test/epochbest_test.html",
+            "test/epochbest_test.json"]
+    want += [f"test/epochbest_test/batch{i:04d}.npz"
+             for i in range(vali_frames)]
+    for epoch in (1, 2):
+        for phase in ("train", "vali"):
+            d = f"visualize/epoch{epoch:04d}_{phase}"
+            want += [f"{d}/index.html", f"{d}/rank0000_batch0000.npz"
+                     if phase == "vali" else
+                     f"{d}/rank0000_batch{n_pairs - 1:04d}.npz"]
+            if not glob.glob(os.path.join(logdir, d, "*.png")):
+                fail(f"recipe: no PNG in {d}")
+    missing = [f for f in want if not os.path.isfile(os.path.join(logdir, f))]
+    if missing:
+        fail(f"recipe: missing artifacts {missing}")
+    with open(os.path.join(logdir, "test", "epochbest_test.json")) as f:
+        summary = json.load(f)
+    if summary["frames"] != vali_frames or \
+            summary["launches"]["mlp_fwd"] != vali_frames:
+        fail(f"recipe: the test entry launched kernel B's forward "
+             f"{summary['launches']['mlp_fwd']} times over "
+             f"{summary['frames']} frames, want one a frame ({vali_frames})")
+
+    # best.pt in a fresh step: the test entry's depth bit for bit, and the
+    # scene flow of kernel B's plain version at the same weights
+    opt = Namespace(**load_opt(logdir))
+    model = Model(opt, device=dev, pretrained=False)
+    load_checkpoint(os.path.join(logdir, "best.pt"), model.step)
+    net_sf, cfg = model.step.net_sf, model.step.cfg
+    layers = [layer.conv for layer in net_sf.convs]
+    worst_sf = 0.0
+    for i in range(vali_frames):
+        batch = to_device(run.trainer.dataset_vali[i], dev)
+        pred = model.step.predict(batch)
+        dump = np.load(os.path.join(logdir, "test", "epochbest_test",
+                                    f"batch{i:04d}.npz"))
+        if not np.array_equal(pred["depth"].cpu().numpy(), dump["depth"]):
+            fail(f"recipe: frame {i}: depth of best.pt in a fresh step "
+                 "differs from the test entry's npz")
+        cam = Camera(batch["R_1"], batch["t_1"], batch["K"], batch["K_inv"])
+        pts = unproject(pred["depth"], cam).reshape(-1, 3)
+        with torch.no_grad():
+            plain = mlp_kernel.mlp_embed_plain(
+                pts, batch["time_stamp_1"].reshape(-1, 1),
+                [l.weight for l in layers], [l.bias for l in layers],
+                cfg.n_freq_xyz, cfg.n_freq_t, cfg.time_dependent)
+        plain = (plain / cfg.loss.sf_mag_div).reshape(pred["sf_1_2"].shape)
+        worst_sf = max(worst_sf, rel_err(pred["sf_1_2"], plain)[1])
+        sf_dump = torch.from_numpy(dump["sf_1_2"]).to(dev)
+        worst_sf = max(worst_sf, rel_err(sf_dump, plain)[1])
+    if not worst_sf <= TOL["mlp_fwd"]:
+        fail(f"recipe: sf_1_2 of best.pt vs kernel B's plain version: "
+             f"relative error {worst_sf:.3e} > {TOL['mlp_fwd']}")
+
+    # --resume -1: the nets and both Adams bit for bit, then epoch 3
+    ckpt = read_checkpoint(os.path.join(logdir, "checkpoint.pt"))
+    resumed = build_run(["--full_logdir", logdir, "--resume", "-1",
+                         "--epoch", "3"] + common)
+    step = resumed.model.step
+    loaded = [step.net_depth.state_dict(), step.net_sf.state_dict()]
+    if resumed.start_epoch != 3 or not state_equal(loaded, ckpt["nets"]) \
+            or not state_equal([o.state_dict() for o in step.optimizers],
+                               ckpt["optimizers"]):
+        fail("recipe: --resume -1 did not restore checkpoint.pt bit for bit "
+             f"(start epoch {resumed.start_epoch})")
+    resumed.train()
+    hist3 = resumed.trainer.history
+    if len(hist3) != n_pairs or any(r["epoch"] != 3 or r["warm"]
+                                    for r in hist3) or \
+            not all(math.isfinite(r[k]) for r in hist3 for k in
+                    ("loss", "flow_loss_1_2", "disp_loss_1_2", "sf_loss",
+                     "acc_reg")):
+        fail(f"recipe: the resumed epoch 3 ran {len(hist3)} steps, want "
+             f"{n_pairs} finite main-phase steps")
+
+    by_file = collections.defaultdict(list)  # (seconds, bytes) by file
+    for path, sec, n in run.saves:
+        name = "nets/%04d.pt" if "/nets/" in path else os.path.basename(path)
+        by_file[name].append((sec, n))
+    saves = "; ".join(
+        f"{name} {len(v)} saves "
+        + "/".join(f"{sec:.3f}" for sec, _ in v) + f" s, {v[-1][1]} bytes"
+        for name, v in sorted(by_file.items()))
+    outside = {e: 1 - sum(r["seconds"] for r in hist if r["epoch"] == e)
+               / walls[e] for e in walls}
+    print(f"[recipe] {card}: MiDaS {H}x{W}, {n_pairs} steps an epoch, "
+          f"{vali_frames} test frames; test entry median "
+          f"{summary['median_predict_ms']:.2f} ms a frame predict only "
+          f"(first frame excluded), {summary['median_frame_ms']:.2f} ms "
+          f"with npz and PNGs, {summary['loop_seconds']:.2f} s its frame "
+          f"loop, {test_s:.1f} s the chained command; {saves} (the last "
+          "save's size); visualization "
+          + ", ".join(f"{run.vis_seconds.get(e, 0.0):.2f} s epoch {e}"
+                      for e in sorted(walls))
+          + "; share of epoch wall outside the train steps "
+          + ", ".join(f"{outside[e]:.3f} epoch {e} ({walls[e]:.2f} s)"
+                      for e in sorted(walls))
+          + f"; sf_1_2 vs plain {worst_sf:.3e}; resumed epoch 3 median step "
+          f"{statistics.median(1e3 * r['seconds'] for r in hist3):.2f} ms",
+          flush=True)
     return counts, variants
 
 
@@ -1524,15 +1746,9 @@ def main() -> None:
     phase_dense(dev, results)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as workdir:
-        # 6 frames: 4 gap-1, 3 gap-2 and 1 gap-4 pairs per epoch
-        counts, midas_variants = phase_trainer(
-            dev, workdir, "midas", ["--midas"], (1, 2, 4), 6, MIDAS_KERNELS,
-            midas=True)
-        # 5 frames: 3 gap-1 and 2 gap-2 pairs per epoch
-        hourglass, hourglass_variants = phase_trainer(
-            dev, workdir, "hourglass",
-            ["--use_pallas_sf_chain", "off", "--use_pallas_loss", "off"],
-            (1, 2), 5, HOURGLASS_KERNELS)
+        counts, midas_variants = phase_recipe(dev, workdir, card)
+        torch.cuda.empty_cache()
+        hourglass, hourglass_variants = phase_hourglass(dev, workdir)
         torch.cuda.empty_cache()
         pre_counts, pre_variants = phase_preprocess(dev, workdir, card,
                                                     results)

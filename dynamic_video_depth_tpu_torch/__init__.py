@@ -7,5 +7,7 @@ never ``jax`` (nor the JAX package, whose ``data`` subpackage pulls jax in).
 
 Layout mirrors the JAX package: ``ops`` (geometry, warp, embedding and the
 hand-written CUDA kernels under ``ops/cuda`` + ``csrc``), ``models``,
-``train``, ``data``, ``runtime``.
+``train`` (the step, the loop and the train entry), ``data``, ``runtime``
+(options, checkpoints, loggers, weights, the device), ``utils`` (colouring,
+visualization, metrics), ``preprocess`` and the test entry ``test``.
 """

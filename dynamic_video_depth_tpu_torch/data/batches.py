@@ -97,18 +97,23 @@ def frame_batch_from_npz(raw: Dict[str, np.ndarray], idx: int,
     h, w, _ = img.shape
     pose = np.asarray(raw["pose_c2w"], np.float32)
     K = np.asarray(raw["intrinsics"], np.float32)
-    return {
+    batch = {
         "img": img[None],
         "time_stamp_1": np.full((1, h, w, 1), idx / n_frames, np.float32),
         "time_step": np.float32(unit / n_frames),
         "frame_id_1": np.asarray([idx], np.float32),
         "depth_pred": np.asarray(raw["depth_pred"], np.float32)[None],
         "depth_mvs": np.asarray(raw["depth_mvs"], np.float32)[None],
+        "cam_c2w": pose[None],
         "R_1": pose[None, :3, :3].copy(),
         "t_1": pose[None, :3, 3].copy(),
         "K": K[None],
         "K_inv": np.linalg.inv(K)[None].astype(np.float32),
     }
+    if "motion_seg" in raw:
+        batch["motion_seg_1"] = np.asarray(
+            raw["motion_seg"], np.float32).reshape(1, h, w, 1)
+    return batch
 
 
 def to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:

@@ -15,7 +15,8 @@ dicts of numpy arrays, to a torch state dict of the port and back:
 Neither direction imports jax: the caller converts arrays to numpy.
 
 ``load_raft_checkpoint`` and ``load_midas_checkpoint`` read the pretrained
-torch files of preprocessing. ``bias_midas_output`` is a fixture helper for
+torch files of preprocessing, ``load_pretrained_depth`` those of the
+trainer's depth net. ``bias_midas_output`` is a fixture helper for
 random-weight MiDaS runs.
 """
 
@@ -146,11 +147,24 @@ def bias_midas_output(net: nn.Module, bias: float = 200.0) -> nn.Module:
     return net
 
 
-# The pretrained MiDaS checkpoint, where the JAX package looks for it
-# (train/scene_flow_motion_field.py); preprocessing stage 1 loads it when
-# the file exists and otherwise runs random weights.
+# The pretrained depth checkpoints, where the JAX package looks for them
+# (train/scene_flow_motion_field.py; reference configs/__init__.py:15-16).
+# Preprocessing stage 1 and the trainer load them when the file exists and
+# otherwise run random weights.
 MIDAS_PRETRAIN_PATH = os.environ.get(
     "DVD_MIDAS_CKPT", "./pretrained_depth_ckpt/midas_cpkt.pt")
+DEPTH_PRETRAIN_PATH = os.environ.get(
+    "DVD_HOURGLASS_CKPT",
+    "./pretrained_depth_ckpt/best_depth_Ours_Bilinear_inc_3_net_G.pth")
+
+# Keys of the pretrained depth files that no module of the port (nor of the
+# JAX package) consumes: batch-norm step counters, MiDaS's
+# refinenet4.resConfUnit1 (built but never called by the reference,
+# third_party/midas_blocks.py:152-160) and the hourglass's
+# uncertainty_layer (built, unused in forward, third_party/hourglass.py:
+# 172-188).
+PRETRAINED_LEFTOVERS = ("num_batches", "refinenet4.resConfUnit1",
+                        "uncertainty_layer")
 
 
 def _load_torch_file(path: str) -> Dict[str, torch.Tensor]:
@@ -173,6 +187,33 @@ def load_midas_checkpoint(net: nn.Module, path: str) -> nn.Module:
                if k not in sd and not k.endswith("num_batches_tracked")]
     if missing:
         raise KeyError(f"MiDaS checkpoint {path} lacks {missing[:5]}")
+    net.load_state_dict({k: sd.get(k, v) for k, v in own.items()},
+                        strict=True)
+    return net
+
+
+def load_pretrained_depth(net: nn.Module, path: str,
+                          midas: bool) -> nn.Module:
+    """Load the pretrained MiDaS (``midas``) or hourglass depth checkpoint
+    into the trainer's depth net (JAX train/scene_flow_motion_field.py:
+    217-251). The hourglass file holds the inner net's keys, nested here
+    under ``net_depth.``. Every parameter and buffer of ``net`` (step
+    counters aside) must be in the file, and a key of the file that ``net``
+    does not consume raises unless it is one of ``PRETRAINED_LEFTOVERS``: a
+    weight dropped without notice would spoil every result."""
+    sd = _load_torch_file(path)
+    if not midas:
+        sd = {"net_depth." + k: v for k, v in sd.items()}
+    own = net.state_dict()
+    leftovers = [k for k in sd if k not in own
+                 and not any(a in k for a in PRETRAINED_LEFTOVERS)]
+    if leftovers:
+        raise KeyError(f"depth checkpoint keys not consumed by the port "
+                       f"(layout drift?): {leftovers[:5]}")
+    missing = [k for k in own
+               if k not in sd and not k.endswith("num_batches_tracked")]
+    if missing:
+        raise KeyError(f"depth checkpoint {path} lacks {missing[:5]}")
     net.load_state_dict({k: sd.get(k, v) for k, v in own.items()},
                         strict=True)
     return net

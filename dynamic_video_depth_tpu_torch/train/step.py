@@ -5,10 +5,10 @@ models/scene_flow_motion_field.py:152-344).
 One step: a batched depth forward over both frames, the backward warp
 (kernel A), Euler integration of the scene-flow field across the frame gap,
 projection into camera 2 and the masked losses plus the acceleration
-regularizer, one backward pass, then one Adam update over two parameter
-groups (depth net at ``lr``, scene-flow net at ``lr * scene_lr_mul``).
-During warm-up the depth net runs without gradient, so its group is not
-stepped.
+regularizer, one backward pass, then an update by two Adams, as the
+reference keeps them: the depth net's at ``lr`` and the scene-flow net's at
+``lr * scene_lr_mul``. During warm-up the depth net runs without gradient,
+so its Adam is not stepped and keeps no state.
 
 Two paths, each chosen by an ``auto|on|off`` mode (the JAX flags of the
 same names). ``auto`` turns both on for a CUDA device and off on the CPU;
@@ -86,7 +86,7 @@ def batch_cameras(batch: Dict[str, torch.Tensor]):
 
 
 class SceneFlowMotionFieldStep:
-    """Owns both nets and their optimizer and runs train/vali steps on
+    """Owns both nets and their optimizers and runs train/vali steps on
     batches of tensors already on ``device``."""
 
     def __init__(self, cfg: TrainStepConfig, device="cuda", seed: int = 0):
@@ -121,22 +121,27 @@ class SceneFlowMotionFieldStep:
             n_layers=cfg.n_layers, init_type=cfg.init_type,
             init_param=cfg.init_param, generator=gen,
         ).to(self.device)
-        self.optimizer = self.make_optimizer()
+        self.opt_depth, self.opt_sf = self.make_optimizers()
 
     def _fused(self, mode: str) -> bool:
         return mode == "on" or (mode == "auto"
                                 and self.device.type == "cuda")
 
-    def make_optimizer(self) -> torch.optim.Adam:
-        """One Adam, two groups: the depth net (group 0) and the scene-flow
-        net (group 1). A group whose gradients are None is not stepped."""
+    def make_optimizers(self) -> Tuple[torch.optim.Adam, torch.optim.Adam]:
+        """The depth net's Adam and the scene-flow net's (reference
+        models/scene_flow_motion_field.py:112-115); parameters whose
+        gradients are None are not stepped."""
         cfg = self.cfg
         kw = dict(betas=(cfg.adam_beta1, cfg.adam_beta2), eps=1e-8)
-        return torch.optim.Adam([
-            {"params": list(self.net_depth.parameters()), "lr": cfg.lr},
-            {"params": list(self.net_sf.parameters()),
-             "lr": cfg.lr * cfg.scene_lr_mul},
-        ], **kw)
+        return (torch.optim.Adam(self.net_depth.parameters(), lr=cfg.lr,
+                                 **kw),
+                torch.optim.Adam(self.net_sf.parameters(),
+                                 lr=cfg.lr * cfg.scene_lr_mul, **kw))
+
+    @property
+    def optimizers(self) -> Tuple[torch.optim.Adam, torch.optim.Adam]:
+        """(depth, scene flow): the order of a checkpoint's ``optimizers``."""
+        return self.opt_depth, self.opt_sf
 
     # -------------------------------------------------------------- forwards
 
@@ -270,13 +275,26 @@ class SceneFlowMotionFieldStep:
                    warm: bool) -> Dict[str, torch.Tensor]:
         """One optimization step; returns the logs as detached scalars on
         the device (the caller decides when to fetch them)."""
-        self.optimizer.zero_grad(set_to_none=True)
+        for opt in self.optimizers:
+            opt.zero_grad(set_to_none=True)
         total, logs = self.loss_and_logs(batch, int(steps), bool(warm))
         total.backward()
-        self.optimizer.step()
+        for opt in self.optimizers:
+            opt.step()
         return {k: v.detach() for k, v in logs.items()}
 
     # ------------------------------------------------------ vali/test steps
+
+    @torch.no_grad()
+    def forward_vis(self, batch: Dict[str, torch.Tensor], steps: int):
+        """The prediction dict of a training pair for visualization (JAX
+        step.py:683-698): the unfused forward plus the per-pixel scene-flow
+        residual ``sf_loss_pp`` (reference
+        models/scene_flow_motion_field.py:306)."""
+        pred, _, _ = self._forward(batch, int(steps), depth_grad=False)
+        pred["sf_loss_pp"] = torch.sum(
+            torch.abs(pred["sf_by_dep_1_2"] - pred["sf_1_2"]), dim=-1)
+        return pred
 
     @torch.no_grad()
     def predict(self, batch: Dict[str, torch.Tensor]):

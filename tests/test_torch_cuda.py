@@ -321,3 +321,110 @@ def test_loss_kernel_matches_plain(dev, b, h, w, shifted, use_disp,
     for k, p in zip(got[1:], want[1:]):
         assert torch.isfinite(k).all()
         assert _rel(k, p) <= 1e-5
+
+
+# ------------------------------------------------------------- the recipe
+
+@pytest.fixture(scope="module")
+def midas_run(tmp_path_factory):
+    """A one-epoch MiDaS run at 224x384 through the train entry on the card
+    (the fixture's biased output conv), then its test entry."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from dynamic_video_depth_tpu_torch import test as test_entry
+    from dynamic_video_depth_tpu_torch.data.synthetic import make_track
+    from dynamic_video_depth_tpu_torch.runtime.weights import (
+        bias_midas_output)
+    from dynamic_video_depth_tpu_torch.train.cli import build_run
+
+    root = tmp_path_factory.mktemp("cuda_recipe")
+    make_track(str(root), track="dog", n_frames=4, h=224, w=384, gaps=(1,))
+    flags = ["--track_id", "dog", "--gaps", "1", "--data_root", str(root),
+             "--midas", "--epoch_batches", "2", "--vali_batches", "2",
+             "--batch_size", "1", "--lr", "1e-6", "--scene_lr_mul", "1000",
+             "--time_dependent", "--use_disp", "--manual_seed", "0",
+             "--vis_batches_train", "1", "--vis_batches_vali", "1",
+             "--full_logdir", str(root / "run")]
+    run = build_run(flags + ["--epoch", "1"])
+    bias_midas_output(run.model.step.net_depth)
+    run.train()
+    mlp_kernel.reset_launches()
+    summary = test_entry.main(["--checkpoint_path", str(root / "run"),
+                               "--output_dir", str(root / "run" / "test")])
+    return root, flags, summary
+
+
+def test_test_entry_matches_predict_on_the_card(midas_run):
+    """best.pt in a fresh step gives each frame's npz depth bit for bit;
+    its scene flow is kernel B's, within TOL of the plain MLP; kernel B's
+    forward ran once a frame."""
+    import numpy as np
+    from argparse import Namespace
+
+    from dynamic_video_depth_tpu_torch.data.batches import to_device
+    from dynamic_video_depth_tpu_torch.data.davis_sequence import Dataset
+    from dynamic_video_depth_tpu_torch.ops import Camera, unproject
+    from dynamic_video_depth_tpu_torch.runtime.checkpoint import (
+        load_checkpoint, load_opt)
+    from dynamic_video_depth_tpu_torch.train.scene_flow_motion_field import (
+        Model)
+
+    root, _, summary = midas_run
+    run_dir = root / "run"
+    opt = Namespace(**load_opt(str(run_dir)))
+    model = Model(opt, device="cuda", pretrained=False)
+    load_checkpoint(str(run_dir / "best.pt"), model.step)
+    ds = Dataset(opt, "vali")
+    assert summary["frames"] == len(ds) == summary["launches"]["mlp_fwd"]
+    layers = [layer.conv for layer in model.step.net_sf.convs]
+    cfg = model.step.cfg
+    for i in range(len(ds)):
+        batch = to_device(ds[i], "cuda")
+        pred = model.step.predict(batch)
+        dump = np.load(run_dir / "test" / "epochbest_test" /
+                       f"batch{i:04d}.npz")
+        assert np.array_equal(pred["depth"].cpu().numpy(), dump["depth"])
+        cam = Camera(batch["R_1"], batch["t_1"], batch["K"], batch["K_inv"])
+        with torch.no_grad():
+            plain = mlp_kernel.mlp_embed_plain(
+                unproject(pred["depth"], cam).reshape(-1, 3),
+                batch["time_stamp_1"].reshape(-1, 1),
+                [l.weight for l in layers], [l.bias for l in layers],
+                cfg.n_freq_xyz, cfg.n_freq_t, cfg.time_dependent)
+        plain = (plain / cfg.loss.sf_mag_div).reshape(pred["sf_1_2"].shape)
+        assert _rel(torch.from_numpy(dump["sf_1_2"]).cuda(), plain) <= 1e-4
+
+
+def test_resume_round_trip_on_the_card(midas_run):
+    """--resume -1 on the card: both nets and both Adams equal
+    checkpoint.pt bit for bit, and the next epoch trains."""
+    import math
+
+    from dynamic_video_depth_tpu_torch.runtime.checkpoint import (
+        read_checkpoint)
+    from dynamic_video_depth_tpu_torch.train.cli import build_run
+
+    root, flags, _ = midas_run
+    saved = read_checkpoint(str(root / "run" / "checkpoint.pt"))
+    run = build_run(["--full_logdir", str(root / "run"), "--resume", "-1",
+                     "--epoch", "2", "--epoch_batches", "2",
+                     "--vali_batches", "2", "--batch_size", "1"])
+    step = run.model.step
+    assert run.start_epoch == 2
+
+    def same(a, b):
+        if isinstance(a, torch.Tensor):
+            return torch.equal(a.cpu(), b.cpu())
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+        if isinstance(a, (list, tuple)):
+            return len(a) == len(b) and all(map(same, a, b))
+        return a == b
+
+    assert same([step.net_depth.state_dict(), step.net_sf.state_dict()],
+                saved["nets"])
+    assert same([o.state_dict() for o in step.optimizers],
+                saved["optimizers"])
+    hist = run.train().history
+    assert [r["epoch"] for r in hist] == [2, 2]
+    assert all(math.isfinite(r["loss"]) for r in hist)

@@ -131,17 +131,26 @@ DELIBERATE = {
     # the JAX parser requires them; the port supports one value of each
     "net": "scene_flow_motion_field",
     "dataset": "davis_sequence",
-    # the port refuses --n_chips until the fleet is ported, so it has no
-    # value to default to
-    "n_chips": None,
 }
+
+# The recipe's run flags: checkpoints, resume, loggers, visualization and
+# the chained test entry (JAX runtime/config.py:16-128).
+RUN_FLAGS = (
+    "logdir", "full_logdir", "suffix", "expr_id", "exprdir_no_prefix",
+    "force_overwrite", "pt_no_overwrite", "resume", "load_reference_ckpt",
+    "save_net", "save_net_opt", "save_every", "vali_at_start", "log_batch",
+    "progbar_interval", "no_accum", "print_net", "vis_every_vali",
+    "vis_every_train", "vis_batches_vali", "vis_batches_train",
+    "vis_workers", "vis_at_start", "vis_param_f", "html_logger",
+    "tensorboard", "tensorboard_keyword", "test_template")
 
 
 def test_parser_defaults_match_jax():
     port = _defaults(cli.build_parser())
     jax = _defaults(_jax_parser())
     shared = sorted(set(port) & set(jax))
-    assert len(shared) >= 35
+    assert set(RUN_FLAGS) <= set(shared)
+    assert len(shared) >= 65
     differ = {k: port[k] for k in shared if port[k] != jax[k]}
     assert differ == DELIBERATE
     # flags only the port has: the torch device (the JAX package picks its
