@@ -63,6 +63,34 @@ prints no result; ``--warp_only`` is ``--only warp``.
 7. Runs a warm-up and a main step of the hourglass slice on a small input
    on the card (fused paths) and on the CPU (plain, unfused) and compares
    the losses.
+8. Runs phase 3's recipe with ``--mixed_precision_training`` on phase 3's
+   track: MiDaS in bfloat16 (float32 parameters, optimizers, geometry and
+   kernels), a warm-up and a main epoch, then the chained test entry. It
+   checks what phase 3 checks of the steps and kernels, that the test
+   entry's npz depth is a fresh bfloat16 ``predict`` of ``best.pt`` bit for
+   bit, and in one more main step that every convolution of the depth net
+   took bfloat16 input and the depth reached the geometry as float32. Its
+   ``[bf16]`` line gives the median main step at gap 2 in bfloat16 and in
+   float32 (phase 3's trained step), timed in turns, the five CUDA kernels
+   with the most device time in one profiled step of each with the device
+   time of the FFT convolution path (FFT and complex-GEMM kernels), and the
+   test entry's time a frame.
+9. Runs ``experiments/shutterstock/train_sequence.sh``'s flags with
+   ``--use_cnn --optim sgd --sgd_dampening 0.1 --wdecay 1e-4
+   --log_grad_stats --remat_depth`` on a synthetic ShutterStock track
+   picked by ``--track_id 0`` (MiDaS at full width in float32, the
+   ``FCNUnet`` scene-flow field), a warm-up and a main epoch, then its
+   chained test command (``experiments/shutterstock/test_cmd.txt``). It
+   checks that kernels A and D launched and B and C did not, that
+   ``checkpoint.pt`` holds SGD momentum buffers and ``--resume -1``
+   restores them bit for bit, the grad-stat columns of ``epoch_loss.csv``
+   (the depth terms 0 in warm-up and above 0 after) and the test entry's
+   npz depth against ``best.pt``; its ``[variants]`` line gives the step's
+   median time.
+
+Phases 8 and 9 run after phase 5, in that order; phase 3's trained run is
+kept for phase 8's float32 yardstick, and each run's files are removed once
+checked.
 
 Phase 1 also counts the tensor-core instructions (HMMA, HGMMA) in the two
 MLP libraries and the warp's shared atomics and global reductions with
@@ -148,10 +176,19 @@ REPLACES = {"warp_fwd": PALLAS + "warp_kernel.py:257",
 # the canonical recipe and its chained test command (the smoke's phase 3)
 RECIPE = "experiments/davis/train_sequence.sh"
 TEST_TEMPLATE = "experiments/davis/test_cmd.txt"
+# the ShutterStock recipe and the variants phase 9 adds to it
+SS_RECIPE = "experiments/shutterstock/train_sequence.sh"
+SS_TEST_TEMPLATE = "experiments/shutterstock/test_cmd.txt"
+VARIANT_FLAGS = ["--use_cnn", "--optim", "sgd", "--sgd_dampening", "0.1",
+                 "--wdecay", "1e-4", "--log_grad_stats", "--remat_depth"]
+GRAD_STATS = ("grad_norm_depth", "grad_norm_sf", "grad_max_depth",
+              "grad_max_sf")
 # kernels each path must launch; fused_mlp (dense_*) is on no path, as in
 # the JAX package, and is held in phase 2 only
 HOURGLASS_KERNELS = ("warp_fwd", "warp_bwd", "mlp_fwd", "mlp_bwd")
 MIDAS_KERNELS = HOURGLASS_KERNELS + ("chain_bwd", "loss_fwd", "loss_bwd")
+# the CNN scene-flow field takes neither kernel B nor the chain
+VARIANT_KERNELS = ("warp_fwd", "warp_bwd", "loss_fwd", "loss_bwd")
 PREPROCESS_KERNELS = ("corr_lookup",)
 # RAFT at 288x512: a 36x64 grid at 1/8, four levels, radius 4; both
 # directions of one pair in one batch
@@ -247,6 +284,13 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def kernel_name(key: str) -> str:
+    """A profiler key without ``void``, anonymous namespaces and the
+    argument list."""
+    return (key.replace("(anonymous namespace)::", "").replace("void ", "")
+            .split("(")[0])
+
+
 def device_split(fn, reps: int = 3, tries: int = 3) -> str:
     """The device time of each CUDA kernel that ``fn`` launches, per call
     (``torch.profiler`` over ``reps`` calls): "name ms xlaunches, ...". The
@@ -271,8 +315,7 @@ def device_split(fn, reps: int = 3, tries: int = 3) -> str:
                 continue
             n = max(1, round(e.count / reps))
             rows.append((e.self_device_time_total / 1e3 / e.count * n, n,
-                         e.key.replace("(anonymous namespace)::", "")
-                         .replace("void ", "").split("(")[0]))
+                         kernel_name(e.key)))
         rows.sort(reverse=True)
         if rows:
             return ", ".join(f"{name} {ms:.4f} ms x{n}"
@@ -1206,12 +1249,12 @@ def track_pairs(root: str, track: str) -> int:
         root, "sequences_select_pairs_midas", track, "001", "*.pt")))
 
 
-def recipe_flags(track: str) -> list:
-    """The flags between ``python train.py`` and ``"$@"`` in
-    ``experiments/davis/train_sequence.sh``, ``${track}`` as ``track``."""
+def recipe_flags(track: str, recipe: str = RECIPE) -> list:
+    """The flags between ``python train.py`` and ``"$@"`` in ``recipe``
+    (``experiments/davis/train_sequence.sh``), ``${track}`` as ``track``."""
     import shlex
 
-    with open(os.path.join(HERE, RECIPE)) as f:
+    with open(os.path.join(HERE, recipe)) as f:
         body = f.read().split("python train.py", 1)[1].split('"$@"', 1)[0]
     return shlex.split(body.replace("\\\n", " ").replace("${track}", track))
 
@@ -1269,7 +1312,9 @@ def phase_recipe(dev, workdir: str, card: str):
     entry's npz bit for bit and a scene flow that kernel B's plain version
     gives too, that the test entry launched kernel B once a frame, and that
     ``--resume -1`` loads ``checkpoint.pt`` bit for bit and trains on.
-    Returns the training run's launch counts and variants."""
+    Returns the training run's launch counts and variants, and the run
+    (its trained float32 step is phase 8's yardstick); the run's files are
+    removed at the end."""
     import glob
     from argparse import Namespace
 
@@ -1412,6 +1457,277 @@ def phase_recipe(dev, workdir: str, card: str):
           + f"; sf_1_2 vs plain {worst_sf:.3e}; resumed epoch 3 median step "
           f"{statistics.median(1e3 * r['seconds'] for r in hist3):.2f} ms",
           flush=True)
+    shutil.rmtree(logdir)
+    return counts, variants, run
+
+
+def gap_batch(dataset, gap: int, dev):
+    """The first training pair of ``dataset`` at ``gap``, on ``dev``."""
+    from dynamic_video_depth_tpu_torch.data.batches import (collate_batches,
+                                                            to_device)
+
+    idx = next(i for i in range(len(dataset)) if dataset.gap_of(i) == gap)
+    return to_device(collate_batches([dataset[idx]]), dev)
+
+
+def step_wall_ms(step, batch, gap: int) -> float:
+    """One main train step's wall time in ms, host clock to the fetch of
+    its losses (the epoch loop's synchronisation)."""
+    import torch
+
+    t0 = time.perf_counter()
+    logs = step.train_step(batch, steps=gap, warm=False)
+    torch.stack(list(logs.values())).tolist()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def top_kernels(fn, n: int = 5):
+    """``torch.profiler`` over one call of ``fn``: (device ms of its CUDA
+    kernels in all, the ``n`` kernels with the most device time as "name ms
+    xcount", the device ms of the FFT convolution path: kernels named for
+    an FFT or a complex-float GEMM, ``cf32``). User annotations (the
+    optimizers' ranges) are not kernels and are left out."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0
+                   and not getattr(e, "is_user_annotation", False)
+                   and "#" not in e.key), reverse=True)
+    if not rows:
+        fail("the profiler recorded no device time for a train step")
+    total = sum(r[0] for r in rows)
+    fft = sum(r[0] for r in rows
+              if "fft" in r[2].lower() or "cf32" in r[2].lower())
+    top = [f"{kernel_name(name)[:64]} {ms:.2f} ms x{count}"
+           for ms, count, name in rows[:n]]
+    return total, top, fft
+
+
+def check_test_entry_depth(label: str, run, dev, summary_path: str,
+                           npz_dir: str) -> dict:
+    """``best.pt`` of ``run`` in a fresh step (the compute dtype its
+    ``opt.json`` names) gives every frame's npz depth of the test entry bit
+    for bit; returns the test entry's summary."""
+    from argparse import Namespace
+
+    import numpy as np
+
+    from dynamic_video_depth_tpu_torch.data.batches import to_device
+    from dynamic_video_depth_tpu_torch.runtime.checkpoint import (
+        load_checkpoint, load_opt)
+    from dynamic_video_depth_tpu_torch.train.scene_flow_motion_field import (
+        Model)
+
+    with open(summary_path) as f:
+        summary = json.load(f)
+    frames = len(run.trainer.dataset_vali)
+    if summary["frames"] != frames:
+        fail(f"{label}: the test entry ran {summary['frames']} frames of "
+             f"{frames}")
+    model = Model(Namespace(**load_opt(run.logdir)), device=dev,
+                  pretrained=False)
+    if model.step.compute_dtype != run.model.step.compute_dtype:
+        fail(f"{label}: opt.json gives another compute dtype")
+    load_checkpoint(os.path.join(run.logdir, "best.pt"), model.step)
+    for i in range(frames):
+        pred = model.step.predict(to_device(run.trainer.dataset_vali[i], dev))
+        dump = np.load(os.path.join(npz_dir, f"batch{i:04d}.npz"))
+        if not np.array_equal(pred["depth"].cpu().numpy(), dump["depth"]):
+            fail(f"{label}: frame {i}: depth of best.pt in a fresh step "
+                 "differs from the test entry's npz")
+    return summary
+
+
+def phase_bf16(dev, workdir: str, card: str, f32_run):
+    """The canonical recipe with ``--mixed_precision_training`` on phase
+    3's track: MiDaS in bfloat16 at full width (the fixture's biased output
+    conv), a warm-up and a main epoch, then the chained test entry. Checks
+    what phase 3 checks of the steps, that the test entry's npz depth is a
+    fresh bfloat16 ``predict`` of ``best.pt`` bit for bit, and, in one more
+    main step, that every convolution of the depth net took bfloat16 input
+    and that the depth reached the geometry as float32. Times main steps at
+    gap 2 in bfloat16 and in float32 (phase 3's trained step) in turns and
+    profiles one of each. Returns the launch counts and variants."""
+    import torch
+    from torch import nn
+
+    from dynamic_video_depth_tpu_torch.train.cli import build_run
+
+    track, gaps = "smoke_recipe", (1, 2, 4)  # phase 3's track
+    n_pairs = track_pairs(workdir, track)
+    argv = recipe_flags(track) + [
+        "--epoch_batches", str(n_pairs), "--vali_batches", "2",
+        "--batch_size", "1", "--device", str(dev), "--epoch", "2",
+        "--warm_sf", "1", "--data_root", workdir, "--track_id", track,
+        "--gaps", ",".join(map(str, gaps)),
+        "--logdir", os.path.join(workdir, "checkpoints_bf16"),
+        "--test_template", os.path.join(HERE, TEST_TEMPLATE),
+        "--manual_seed", "0", "--mixed_precision_training"]
+    run = build_run(argv)
+    step = run.model.step
+    if step.compute_dtype != torch.bfloat16:
+        fail(f"bf16: --mixed_precision_training gave {step.compute_dtype}")
+    counts, variants, _ = phase_trainer(dev, "midas_bf16", run.trainer,
+                                        gaps, MIDAS_KERNELS, midas=True)
+    run.chain_test()
+    summary = check_test_entry_depth(
+        "bf16", run, dev,
+        os.path.join(run.logdir, "test", "epochbest_test.json"),
+        os.path.join(run.logdir, "test", "epochbest_test"))
+
+    # one more main step at gap 2: the convolutions' input dtypes and the
+    # depth's dtype where the geometry reads it, under the profiler
+    batch = gap_batch(run.trainer.dataset_train, 2, dev)
+    seen = {"conv": set(), "depth": set()}
+    hooks = [m.register_forward_pre_hook(
+        lambda m, args: seen["conv"].add(args[0].dtype))
+        for m in step.net_depth.modules() if isinstance(m, nn.Conv2d)]
+    apply_depth = step._apply_depth
+
+    def recorded(img):
+        depth = apply_depth(img)
+        seen["depth"].add(depth.dtype)
+        return depth
+
+    step._apply_depth = recorded
+    bf16_dev, bf16_top, bf16_fft = top_kernels(
+        lambda: step.train_step(batch, steps=2, warm=False))
+    del step._apply_depth
+    for h in hooks:
+        h.remove()
+    if seen["conv"] != {torch.bfloat16}:
+        fail(f"bf16: the depth net's convolutions took {seen['conv']}")
+    if seen["depth"] != {torch.float32}:
+        fail(f"bf16: the depth reached the geometry as {seen['depth']}")
+    f32_step = f32_run.model.step
+    f32_batch = gap_batch(f32_run.trainer.dataset_train, 2, dev)
+    f32_dev, f32_top, f32_fft = top_kernels(
+        lambda: f32_step.train_step(f32_batch, steps=2, warm=False))
+    walls = {"bf16": [], "f32": []}
+    for _ in range(6):  # in turns: float32, bfloat16
+        walls["f32"].append(step_wall_ms(f32_step, f32_batch, 2))
+        walls["bf16"].append(step_wall_ms(step, batch, 2))
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    print(f"[bf16] {card}: MiDaS {H}x{W} main step at gap 2, median of 6 "
+          f"in turns: bf16 {med['bf16']:.2f} ms, f32 {med['f32']:.2f} ms "
+          f"(x{med['f32'] / med['bf16']:.2f}); one profiled step: bf16 "
+          f"{bf16_dev:.2f} ms of kernel time, FFT path {bf16_fft:.2f} ms, "
+          f"top 5: {'; '.join(bf16_top)} | f32 {f32_dev:.2f} ms, FFT path "
+          f"{f32_fft:.2f} ms, top 5: {'; '.join(f32_top)}; test entry bf16 "
+          f"median {summary['median_predict_ms']:.2f} ms a frame predict "
+          f"only, {summary['median_frame_ms']:.2f} ms with npz and PNGs; "
+          f"convolution inputs {sorted(map(str, seen['conv']))}, depth into "
+          f"the geometry {sorted(map(str, seen['depth']))}", flush=True)
+    shutil.rmtree(run.logdir)
+    return counts, variants
+
+
+def phase_variants(dev, workdir: str, card: str):
+    """``experiments/shutterstock/train_sequence.sh``'s flags with
+    ``VARIANT_FLAGS`` on a synthetic ShutterStock track picked by
+    ``--track_id 0``: MiDaS at full width (float32, recomputed in the
+    backward) and the CNN scene-flow field, SGD, gradient statistics; a
+    warm-up and a main epoch, then the chained test command of
+    ``experiments/shutterstock/test_cmd.txt`` (run from ``workdir``: its
+    output directory is relative). Checks that kernels A and D launched and
+    B and C did not, the SGD momentum buffers of ``checkpoint.pt`` and
+    their bit-equal restore by ``--resume -1``, the grad-stat columns of
+    ``epoch_loss.csv`` (depth terms 0 in warm-up, above 0 after) and the
+    test entry's npz depth against ``best.pt``. Returns the launch counts
+    and variants."""
+    import csv
+
+    from dynamic_video_depth_tpu_torch.data.synthetic import make_track
+    from dynamic_video_depth_tpu_torch.models import FCNUnet
+    from dynamic_video_depth_tpu_torch.runtime.checkpoint import (
+        read_checkpoint)
+    from dynamic_video_depth_tpu_torch.train.cli import build_run
+
+    root = os.path.join(workdir, "shutterstock")
+    gaps = (1, 2)
+    # 5 frames: 3 gap-1 and 2 gap-2 pairs per epoch
+    make_track(root, track="smoke_ss", n_frames=5, h=H, w=W, gaps=gaps)
+    n_pairs = track_pairs(root, "smoke_ss")
+    common = ["--epoch_batches", str(n_pairs), "--vali_batches", "2",
+              "--batch_size", "1", "--device", str(dev)]
+    argv = recipe_flags("0", SS_RECIPE) + common + VARIANT_FLAGS + [
+        "--epoch", "2", "--warm_sf", "1", "--data_root", root,
+        "--gaps", ",".join(map(str, gaps)),
+        "--logdir", os.path.join(workdir, "checkpoints_ss"),
+        "--test_template", os.path.join(HERE, SS_TEST_TEMPLATE),
+        "--manual_seed", "0"]
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        run = build_run(argv)
+        step = run.model.step
+        if run.opt.track_id != "smoke_ss" or type(step.net_sf) is not \
+                FCNUnet or step.chain_fused or not step.loss_fused:
+            fail(f"variants: track {run.opt.track_id}, field "
+                 f"{type(step.net_sf).__name__}, chain {step.chain_fused}, "
+                 f"fused loss {step.loss_fused}")
+        counts, variants, _ = phase_trainer(dev, "variants", run.trainer,
+                                            gaps, VARIANT_KERNELS,
+                                            midas=True)
+        launched = [k for k in ("mlp_fwd", "mlp_bwd", "chain_bwd")
+                    if counts[k]]
+        if launched:
+            fail(f"variants: the CNN path launched {launched}: {counts}")
+        run.chain_test()
+        out = os.path.join(workdir, "test_results", "shutterstock",
+                           "track_smoke_ss")
+        summary = check_test_entry_depth(
+            "variants", run, dev, os.path.join(out, "epochbest_test.json"),
+            os.path.join(out, "epochbest_test"))
+        if summary["launches"]["mlp_fwd"]:
+            fail("variants: the test entry launched kernel B")
+    finally:
+        os.chdir(cwd)
+
+    with open(os.path.join(run.logdir, "epoch_loss.csv")) as f:
+        rows = list(csv.DictReader(f))
+    stats = [[float(r[k]) for k in GRAD_STATS] for r in rows]
+    if len(rows) != 2 or not all(map(math.isfinite, sum(stats, []))):
+        fail(f"variants: epoch_loss.csv grad stats {stats}")
+    depth = {int(r["epoch"]): (float(r["grad_norm_depth"]),
+                               float(r["grad_max_depth"])) for r in rows}
+    if depth[1] != (0.0, 0.0) or not min(depth[2]) > 0.0:
+        fail(f"variants: depth grad stats {depth}, want 0 in warm-up and "
+             "above 0 after")
+    ckpt = read_checkpoint(os.path.join(run.logdir, "checkpoint.pt"))
+    for sd in ckpt["optimizers"]:
+        if not sd["state"] or not all("momentum_buffer" in v
+                                      for v in sd["state"].values()):
+            fail("variants: checkpoint.pt lacks SGD momentum buffers")
+    resumed = build_run(["--full_logdir", run.logdir, "--resume", "-1",
+                         "--epoch", "3"] + common)
+    rstep = resumed.model.step
+    if resumed.start_epoch != 3 or not state_equal(
+            [o.state_dict() for o in rstep.optimizers],
+            ckpt["optimizers"]) or not state_equal(
+            [rstep.net_depth.state_dict(), rstep.net_sf.state_dict()],
+            ckpt["nets"]):
+        fail("variants: --resume -1 did not restore checkpoint.pt (SGD "
+             "momentum buffers included) bit for bit")
+    hist = run.trainer.history
+    main = [1e3 * r["seconds"] for r in hist if not r["warm"]][1:]
+    warm = [1e3 * r["seconds"] for r in hist if r["warm"]][1:]
+    print(f"[variants] {card}: MiDaS {H}x{W} f32 with --remat_depth, "
+          f"FCNUnet field, SGD, --log_grad_stats; median step "
+          f"{statistics.median(main):.2f} ms main, "
+          f"{statistics.median(warm):.2f} ms warm-up (first step of each "
+          f"phase excluded); grad stats epoch 2 "
+          + ", ".join(f"{k} {v:.4g}" for k, v in zip(GRAD_STATS, stats[1]))
+          + f"; test entry median {summary['median_predict_ms']:.2f} ms a "
+          f"frame predict only; launches {counts}", flush=True)
+    shutil.rmtree(run.logdir)
     return counts, variants
 
 
@@ -1746,12 +2062,22 @@ def main() -> None:
     phase_dense(dev, results)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as workdir:
-        counts, midas_variants = phase_recipe(dev, workdir, card)
+        counts, midas_variants, f32_run = phase_recipe(dev, workdir, card)
         torch.cuda.empty_cache()
         hourglass, hourglass_variants = phase_hourglass(dev, workdir)
         torch.cuda.empty_cache()
         pre_counts, pre_variants = phase_preprocess(dev, workdir, card,
                                                     results)
+        torch.cuda.empty_cache()
+        bf16, bf16_variants = phase_bf16(dev, workdir, card, f32_run)
+        del f32_run
+        torch.cuda.empty_cache()
+        var_counts, var_variants = phase_variants(dev, workdir, card)
+        torch.cuda.empty_cache()
+    if not (bf16_variants.get(("warp_fwd", 3))
+            and var_variants.get(("warp_fwd", 3))):
+        fail(f"the bf16 or variant path did not launch the warp at 3 "
+             f"channels: {bf16_variants}, {var_variants}")
     if hourglass["chain_bwd"] or hourglass["loss_fwd"]:
         fail(f"the hourglass path with the fused paths off launched kernel "
              f"C or D: {hourglass}")
@@ -1760,7 +2086,8 @@ def main() -> None:
         fail(f"the MiDaS path did not launch the warp at 3 channels: "
              f"{midas_variants}")
     unchecked = (set(midas_variants) | set(hourglass_variants)
-                 | set(pre_variants)) - results.pop("checked")
+                 | set(pre_variants) | set(bf16_variants)
+                 | set(var_variants)) - results.pop("checked")
     if unchecked:
         fail(f"a path launched kernel variants that phase 2 did not check: "
              f"{sorted(unchecked)}")

@@ -138,12 +138,17 @@ class HourglassModel(nn.Module):
 
 
 class HourglassModelEmbed(nn.Module):
-    """(reference third_party/hourglass.py:191-212); the per-frame
-    embedding of the reference is vestigial and not built."""
+    """(reference third_party/hourglass.py:191-212). The per-frame
+    embedding of the reference is vestigial (its ``forward`` ignores it):
+    ``use_embedding`` and ``n_embedding`` are kept as constructor flags
+    without a parameter, as in the JAX package (``--use_embedding``)."""
 
-    def __init__(self, noexp: bool = False,
+    def __init__(self, noexp: bool = False, use_embedding: bool = False,
+                 n_embedding: int = 100,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.use_embedding = use_embedding
+        self.n_embedding = n_embedding
         self.net_depth = HourglassModel(noexp=noexp)
         init_module(self, lecun_normal(), generator)
         self.eval()

@@ -33,14 +33,18 @@ def _linspace_f32(start: float, stop: float, num: int) -> np.ndarray:
     return np.append(out, stop).astype(np.float32)
 
 
-def periodic_embed(x: torch.Tensor, max_freq: int, n_freq: int) -> torch.Tensor:
+def periodic_embed(x: torch.Tensor, max_freq: int, n_freq: int,
+                   linspace: bool = True) -> torch.Tensor:
     """``[..., C] -> [..., C * (1 + 2 * n_freq)]`` with channel order
     ``[x, cos(f1 x)..cos(fN x), sin(f1 x)..sin(fN x)]``, freq-major within
-    each function block (reference PeriodicEmbed, linspace frequencies)."""
+    each function block (reference PeriodicEmbed): frequencies
+    ``linspace(1, max_freq + 1, n_freq)``, or ``2 ** arange(n_freq)`` without
+    ``linspace``."""
     if n_freq == 0:
         return x
-    freqs = torch.from_numpy(_linspace_f32(1.0, max_freq + 1.0, n_freq)).to(
-        device=x.device, dtype=x.dtype)
+    table = (_linspace_f32(1.0, max_freq + 1.0, n_freq) if linspace
+             else 2.0 ** np.arange(n_freq, dtype=np.float32))
+    freqs = torch.from_numpy(table).to(device=x.device, dtype=x.dtype)
     ang = x[..., None, :] * freqs[:, None]
     flat = x.shape[:-1] + (n_freq * x.shape[-1],)
     return torch.cat(

@@ -6,8 +6,12 @@ A checkpoint is the reference's torch format, the one the JAX package's
 ``runtime/migrate.py`` reads::
 
     {'nets': [depth_sd, sceneflow_sd],
-     'optimizers': [adam_depth_sd, adam_scene_sd],  # absent: weights only
+     'optimizers': [depth_opt_sd, scene_opt_sd],  # absent: weights only
      'epoch': N, 'best': b}
+
+The optimizer state dicts are torch's own: Adam's moments, or SGD's
+momentum buffers under ``--optim sgd``; a resumed run rebuilds the
+optimizer its ``opt.json`` names and loads them.
 
 A run writes ``checkpoint.pt`` (every ``--save_every`` epochs and at its
 last epoch), ``best.pt`` (on a better validation loss) and ``nets/%04d.pt``
@@ -47,7 +51,7 @@ def save_checkpoint(path: str, step, epoch: int = 0,
                     best: float = float("inf"),
                     include_opt: bool = True) -> None:
     """Write a ``SceneFlowMotionFieldStep``'s nets (and, with
-    ``include_opt``, both Adams) to ``path`` atomically."""
+    ``include_opt``, both optimizers) to ``path`` atomically."""
     ckpt = {"nets": [step.net_depth.state_dict(), step.net_sf.state_dict()],
             "epoch": int(epoch), "best": float(best)}
     if include_opt:
@@ -63,7 +67,7 @@ def read_checkpoint(path: str, mmap: bool = False) -> Dict:
 
 def load_checkpoint(path: str, step, load_optimizer="auto") -> Dict:
     """Load a reference-format checkpoint into ``step``: both nets with
-    ``strict=True``, and both Adams when the file has them (``'auto'``) or
+    ``strict=True``, and both optimizers when the file has them (``'auto'``) or
     when ``load_optimizer`` is true (a file without them then raises).
     Returns the file's other entries (``epoch``, ``best``, ...)."""
     ckpt = read_checkpoint(path)

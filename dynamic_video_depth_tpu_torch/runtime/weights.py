@@ -10,7 +10,13 @@ dicts of numpy arrays, to a torch state dict of the port and back:
   <-> ``[cout, cin/g, kh, kw]``), dense kernels ``[in, out]`` <-> Linear
   ``[out, in]``;
 - batch norm ``scale``/``bias`` <-> ``weight``/``bias`` and batch stats
-  ``mean``/``var`` <-> ``running_mean``/``running_var``.
+  ``mean``/``var`` <-> ``running_mean``/``running_var``;
+- a PReLU's ``weight`` <-> ``weight``, and a flax ``WeightNorm``'s scale,
+  whose leaf is the wrapped variable's path (``('wn', 'conv/kernel/
+  scale')``), by its last part: ``wn.weight``.
+
+Every net of the port loads this way: the depth nets, the scene-flow field
+and ``FCNUnet``, and the library ``MLP`` and ``EmbeddedMLP``.
 
 Neither direction imports jax: the caller converts arrays to numpy.
 
@@ -29,8 +35,9 @@ import numpy as np
 import torch
 from torch import nn
 
-_LEAF_TO_TORCH = {"kernel": "weight", "scale": "weight", "bias": "bias",
-                  "mean": "running_mean", "var": "running_var"}
+_LEAF_TO_TORCH = {"kernel": "weight", "scale": "weight", "weight": "weight",
+                  "bias": "bias", "mean": "running_mean",
+                  "var": "running_var"}
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[tuple, Any]:
@@ -56,6 +63,7 @@ def _unflatten(flat: Mapping[tuple, Any]) -> Dict:
 def torch_key(path: Tuple[str, ...]) -> str:
     """Flax variable path -> torch state-dict key."""
     *mods, leaf = path
+    leaf = leaf.rsplit("/", 1)[-1]  # a WeightNorm scale: 'conv/kernel/scale'
     if leaf not in _LEAF_TO_TORCH:
         raise KeyError(f"unknown flax leaf {leaf!r} at {path}")
     return ".".join(mods).replace("__", ".") + "." + _LEAF_TO_TORCH[leaf]

@@ -2,10 +2,12 @@
 (counterpart of the JAX package's ``test.py``; reference test.py and
 models/video_base.py:128-272).
 
-Rehydrates a run's options from its ``opt.json``, loads ``best.pt`` (or
-``nets/%04d.pt`` with ``--epoch N``) and runs the refined depth net and the
-one-step scene flow over every frame of the track on ``--device`` (default
-``cuda``). Into ``{output_dir}/epoch{best|%04d}_test/`` it writes per frame
+Rehydrates a run's options from its ``opt.json`` (the net, the dataset,
+``davis_sequence`` or ``shutterstock``, and the depth net's compute dtype
+among them), loads ``best.pt`` (or ``nets/%04d.pt`` with ``--epoch N``) and
+runs the refined depth net and the one-step scene flow over every frame of
+the track on ``--device`` (default ``cuda``). Into
+``{output_dir}/epoch{best|%04d}_test/`` it writes per frame
 ``batch%04d.npz`` (the JAX package's schema) and the visualizer's PNGs and
 ``index.html``; beside that directory the report
 ``epoch{best|%04d}_test.html`` and ``epoch{best|%04d}_test.json`` (the
@@ -35,8 +37,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .data import get_dataset
 from .data.batches import to_device
-from .data.davis_sequence import Dataset
 from .ops import cuda as cuda_kernels
 from .runtime import config
 from .runtime.checkpoint import load_checkpoint, load_opt
@@ -174,7 +176,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                   f"{getattr(opt_train, k)}; using the checkpoint's")
 
     model = Model(opt_train, device=device, pretrained=False)
-    dataset = Dataset(opt_train, "vali")
+    dataset = get_dataset(opt_train.dataset)(opt_train, "vali")
     if len(dataset) == 0:
         raise SystemExit("no validation frames found")
     meta = load_checkpoint(ckpt_file, model.step, load_optimizer=False)

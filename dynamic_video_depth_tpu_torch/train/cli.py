@@ -25,9 +25,16 @@ the hourglass without; the MiDaS far-field loss masks follow the same
 choice. ``--use_pallas_sf_chain`` and ``--use_pallas_loss`` (``auto|on|off``,
 the JAX names) pick the fused chain and fused loss paths: ``auto`` is on for
 ``--device cuda`` and off on the CPU, where ``on`` runs the kernels' plain
-versions. Settings the port does not implement raise: ``--use_cnn``,
-``--mixed_precision_training``, ``--n_chips`` other than 1 and ``--optim
-sgd``; any other unknown flag is an argparse error.
+versions. The JAX entry's variants run as there:
+``--mixed_precision_training`` (the depth net in bfloat16; ``--full_precision``
+forces float32, ``--loss_scaling`` selects nothing), ``--remat_depth``,
+``--optim sgd`` (``--sgd_momentum``, ``--sgd_dampening``, ``--wdecay``),
+``--use_cnn`` (``FCNUnet`` of ``--n_down`` levels as the scene-flow field),
+``--use_embedding``, ``--log_grad_stats`` (gradient norms and maxima in the
+step logs and ``epoch_loss.csv``) and ``--dataset shutterstock`` (an
+integer ``--track_id`` picks a track by sorted index). ``--n_chips`` other
+than 1 raises (the fleet is not ported); any other unknown flag is an
+argparse error.
 
 Example (the canonical DAVIS recipe, ``experiments/davis/train_sequence.sh``
 with this entry)::
@@ -56,6 +63,7 @@ from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 
+from ..data import DATASETS, get_dataset
 from ..data.davis_sequence import Dataset
 from ..runtime import config
 from ..runtime.checkpoint import (load_checkpoint, load_opt, read_best,
@@ -69,7 +77,7 @@ from ..utils.printing import set_manual_seed
 from ..utils.visualizer import HTMLVisualizer
 from .loop import Trainer, vis_index
 from .scene_flow_motion_field import Model, numpy_dict, step_config
-from .step import FUSED_MODES
+from .step import FUSED_MODES, OPTIMS
 
 __all__ = ["build_parser", "build_run", "build_trainer", "main",
            "step_config"]
@@ -83,7 +91,7 @@ def build_parser() -> argparse.ArgumentParser:
     a = p.add_argument
     a("--net", default="scene_flow_motion_field",
       choices=["scene_flow_motion_field"])
-    a("--dataset", default="davis_sequence", choices=["davis_sequence"])
+    a("--dataset", default="davis_sequence", choices=DATASETS)
     Dataset.add_arguments(p)
     a("--device", default="cuda", help="torch device; 'cuda' needs a GPU")
     a("--manual_seed", type=int, default=None)
@@ -95,11 +103,13 @@ def build_parser() -> argparse.ArgumentParser:
       help="one sample per step whatever --batch_size says")
     a("--log_time", action="store_true",
       help="add each batch's time to its logs and print the epoch's phases")
-    a("--optim", default="adam", choices=["adam", "sgd"],
-      help="adam; sgd is refused (not ported)")
+    a("--optim", default="adam", choices=OPTIMS)
     a("--lr", type=float, default=1e-4)
     a("--adam_beta1", type=float, default=0.5)
     a("--adam_beta2", type=float, default=0.9)
+    a("--sgd_momentum", type=float, default=0.9)
+    a("--sgd_dampening", type=float, default=0)
+    a("--wdecay", type=float, default=0.0)
     a("--init_type", default="kaiming")
     a("--scene_lr_mul", type=float, default=1.0)
     a("--warm_sf", type=int, default=0)
@@ -110,8 +120,10 @@ def build_parser() -> argparse.ArgumentParser:
     a("--interp_steps", type=int, default=5)
     a("--n_freq_xyz", type=int, default=16)
     a("--n_freq_t", type=int, default=16)
+    a("--n_down", type=int, default=3, help="--use_cnn: FCNUnet levels")
     for flag in ("--time_dependent", "--use_disp", "--use_disp_ratio",
-                 "--use_motion_seg", "--weight_steps", "--warm_reg"):
+                 "--use_motion_seg", "--weight_steps", "--warm_reg",
+                 "--use_cnn", "--use_embedding", "--log_grad_stats"):
         a(flag, action="store_true")
     a("--loss_type", type=str, default="l2",
       help="kept for the recipe's logdir suffix; as in the JAX package, "
@@ -122,25 +134,24 @@ def build_parser() -> argparse.ArgumentParser:
     for knob in ("sf_chain", "loss"):
         a(f"--use_pallas_{knob}", choices=FUSED_MODES, default="auto",
           help="fused path: auto = on for a CUDA device, off on the CPU")
+    a("--mixed_precision_training", action="store_true",
+      help="run the depth net in bfloat16 (float32 params and updates)")
+    a("--loss_scaling", type=float, default=255,
+      help="kept for the reference's command lines; bfloat16 needs no "
+           "loss scaling, so it selects nothing")
+    a("--full_precision", action="store_true",
+      help="force float32 depth compute")
+    a("--remat_depth", action="store_true",
+      help="recompute the depth forward in the backward pass")
     config.add_run_arguments(p)
-    # accepted only to refuse them: not ported yet
-    for flag in ("--use_cnn", "--mixed_precision_training"):
-        a(flag, action="store_true")
     a("--n_chips", type=int, default=1, help="only 1 is ported")
     return p
 
 
 def _refuse_unported(opt) -> None:
-    unported = {
-        "--use_cnn": opt.use_cnn,
-        "--mixed_precision_training": opt.mixed_precision_training,
-        "--n_chips": opt.n_chips != 1,
-        "--optim sgd": opt.optim != "adam",
-    }
-    given = [k for k, v in unported.items() if v]
-    if given:
+    if opt.n_chips != 1:
         raise NotImplementedError(
-            f"not ported to the PyTorch package yet: {', '.join(given)}")
+            "not ported to the PyTorch package yet: --n_chips")
 
 
 class _RunHooks(BaseLogger):
@@ -216,7 +227,8 @@ class Run:
 
         self.model = Model(opt, device=self.device,
                            seed=opt.manual_seed or 0)
-        train, vali = Dataset(opt, "train"), Dataset(opt, "vali")
+        dataset = get_dataset(opt.dataset)
+        train, vali = dataset(opt, "train"), dataset(opt, "vali")
         print(f"#train pairs: {len(train)}  #vali frames: {len(vali)}  "
               f"device: {self.device}", flush=True)
         if opt.print_net:

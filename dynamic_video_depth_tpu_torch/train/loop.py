@@ -7,8 +7,9 @@ batches; the rng draws and the index mapping are the JAX trainer's, so both
 visit the same pairs at the same seed (a resumed run restarts the rng at
 the seed, as the JAX trainer does). ``warm`` is ``epoch <= warm_sf``; each
 batch carries its own Euler step count. Every step's losses are fetched to
-the host once (one synchronisation per step), printed and handed to the
-loggers, whose ``TerminateOnNaN`` stops a run on a NaN; a validation pass
+the host once (one synchronisation per step; with ``--log_grad_stats``
+the gradient statistics ride along), printed and handed to the loggers,
+whose ``TerminateOnNaN`` stops a run on a NaN; a validation pass
 follows each epoch, and its logs with the epoch's wall time go to the
 loggers' ``on_epoch_end``. ``visualize_fn`` sees every train batch after
 its step and every validation frame with its prediction.
@@ -148,15 +149,16 @@ class Trainer:
             t0 = time.perf_counter()
             dev = to_device(host, device)
             logs = self.step.train_step(dev, steps=host["steps"], warm=warm)
-            vals = torch.stack([logs[k] for k in LOG_KEYS]).tolist()
+            keys = LOG_KEYS + tuple(sorted(set(logs) - set(LOG_KEYS)))
+            vals = dict(zip(keys, torch.stack([logs[k] for k in keys])
+                            .tolist()))
             seconds = time.perf_counter() - t0
-            record = dict(zip(LOG_KEYS, vals), epoch=epoch, warm=warm,
-                          gap=host["steps"], seconds=seconds)
+            record = dict(vals, epoch=epoch, warm=warm, gap=host["steps"],
+                          seconds=seconds)
             self.history.append(record)
             print_step(epoch, i, len(order), host["steps"], warm, record,
                        seconds)
-            batch_logs = dict(zip(LOG_KEYS, vals),
-                              size=len(self.groups[gi]),
+            batch_logs = dict(vals, size=len(self.groups[gi]),
                               data_time=t0 - t_data)
             if self.log_time:
                 batch_logs["batch_time"] = seconds

@@ -2,9 +2,11 @@
 ``dynamic_video_depth_tpu/train/scene_flow_motion_field.py``; reference
 models/scene_flow_motion_field.py).
 
-``Model`` builds a ``SceneFlowMotionFieldStep`` from the options, loads the
-pretrained depth net (MiDaS with ``--midas``, else the hourglass; the test
-net ``tiny`` has none) from ``MIDAS_PRETRAIN_PATH`` /
+``Model`` builds a ``SceneFlowMotionFieldStep`` from the options (the
+flags of the JAX ``Model`` that the step reads: the optimizer, the nets and
+``--use_cnn``, the compute dtype, ``--remat_depth``, ``--log_grad_stats``),
+loads the pretrained depth net (MiDaS with ``--midas``, else the
+hourglass; the test net ``tiny`` has none) from ``MIDAS_PRETRAIN_PATH`` /
 ``DEPTH_PRETRAIN_PATH`` (the environment variables ``DVD_MIDAS_CKPT`` /
 ``DVD_HOURGLASS_CKPT``) when the file is there, and turns the step's
 tensors into the numpy dicts that visualization and the test dumps write.
@@ -23,14 +25,34 @@ from .losses import LossConfig
 from .step import SceneFlowMotionFieldStep, TrainStepConfig, effective_depth_net
 
 
+def compute_dtype(opt) -> str:
+    """``--mixed_precision_training`` selects bfloat16, ``--full_precision``
+    forces float32 after it (JAX train/scene_flow_motion_field.py:124-128);
+    ``--loss_scaling`` selects nothing."""
+    dtype = "float32"
+    if getattr(opt, "mixed_precision_training", False):
+        dtype = "bfloat16"
+    if getattr(opt, "full_precision", False):
+        dtype = "float32"
+    return dtype
+
+
 def step_config(opt) -> TrainStepConfig:
     """The step's configuration; the net and the loss's MiDaS masks both
-    follow ``effective_depth_net``."""
+    follow ``effective_depth_net``. Options that a run's ``opt.json`` from
+    before a flag existed lacks take the flag's default."""
     net = effective_depth_net(opt.depth_net, opt.midas)
     return TrainStepConfig(
-        lr=opt.lr, scene_lr_mul=opt.scene_lr_mul,
+        optim=getattr(opt, "optim", "adam"), lr=opt.lr,
+        scene_lr_mul=opt.scene_lr_mul,
         adam_beta1=opt.adam_beta1, adam_beta2=opt.adam_beta2,
+        sgd_momentum=getattr(opt, "sgd_momentum", 0.9),
+        sgd_dampening=getattr(opt, "sgd_dampening", 0.0),
+        wdecay=getattr(opt, "wdecay", 0.0),
         midas=net == "midas", depth_net=net,
+        use_cnn=getattr(opt, "use_cnn", False),
+        use_embedding=getattr(opt, "use_embedding", False),
+        n_down=getattr(opt, "n_down", 3),
         time_dependent=opt.time_dependent,
         n_freq_xyz=opt.n_freq_xyz, n_freq_t=opt.n_freq_t,
         init_type=opt.init_type,
@@ -41,6 +63,9 @@ def step_config(opt) -> TrainStepConfig:
             midas=net == "midas", weight_steps=opt.weight_steps,
             warm_reg=opt.warm_reg, interp_steps=opt.interp_steps),
         use_motion_seg=opt.use_motion_seg,
+        compute_dtype=compute_dtype(opt),
+        remat_depth=getattr(opt, "remat_depth", False),
+        log_grad_stats=getattr(opt, "log_grad_stats", False),
         use_pallas_sf_chain=opt.use_pallas_sf_chain,
         use_pallas_loss=opt.use_pallas_loss,
     )

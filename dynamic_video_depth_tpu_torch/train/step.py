@@ -5,10 +5,22 @@ models/scene_flow_motion_field.py:152-344).
 One step: a batched depth forward over both frames, the backward warp
 (kernel A), Euler integration of the scene-flow field across the frame gap,
 projection into camera 2 and the masked losses plus the acceleration
-regularizer, one backward pass, then an update by two Adams, as the
+regularizer, one backward pass, then an update by two optimizers, as the
 reference keeps them: the depth net's at ``lr`` and the scene-flow net's at
-``lr * scene_lr_mul``. During warm-up the depth net runs without gradient,
-so its Adam is not stepped and keeps no state.
+``lr * scene_lr_mul``, both Adam or both SGD (``optim``). During warm-up
+the depth net runs without gradient, so its optimizer is not stepped and
+keeps no state.
+
+The depth net computes in ``compute_dtype``: in bfloat16 its input and
+every floating parameter and buffer are cast for the forward (the
+gradients reach the float32 parameters through the casts) and its output
+is cast back to float32 before anything else reads it, as the JAX
+``_apply_depth`` does; with ``remat_depth`` that forward is recomputed in
+the backward pass (``torch.utils.checkpoint``). The geometry, the
+scene-flow net, the optimizers and the four kernels stay float32.
+``use_cnn`` replaces the scene-flow MLP by ``FCNUnet`` on ``[pts, t]``;
+it takes neither kernel B nor the chain. ``log_grad_stats`` adds both
+nets' global gradient norms and largest absolute gradients to the logs.
 
 Two paths, each chosen by an ``auto|on|off`` mode (the JAX flags of the
 same names). ``auto`` turns both on for a CUDA device and off on the CPU;
@@ -31,9 +43,11 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
-from ..models import (HourglassModelEmbed, MidasNet, SceneFlowFieldNet,
-                      TinyDepthNet)
+from ..models import (FCNUnet, HourglassModelEmbed, MidasNet,
+                      SceneFlowFieldNet, TinyDepthNet)
 from ..ops import (Camera, backward_warp, camera_to_world, depth_warp_stage,
                    projection_stage, unproject, unproject_camera)
 from ..ops.cuda.loss_kernel import pack_camera, projection_loss
@@ -43,6 +57,8 @@ from .losses import (_MASK_EPS, LossConfig, acceleration_reg,
 
 DEPTH_NETS = ("hourglass", "midas", "tiny")
 FUSED_MODES = ("auto", "on", "off")
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+OPTIMS = ("adam", "sgd")
 
 
 def effective_depth_net(depth_net: str, midas: bool) -> str:
@@ -59,12 +75,19 @@ class TrainStepConfig:
     """Net and optimization hyperparameters (reference flags
     options/options_train.py:84-90, models/scene_flow_motion_field.py:33-67)."""
 
+    optim: str = "adam"
     lr: float = 1e-6
     scene_lr_mul: float = 1.0
     adam_beta1: float = 0.5
     adam_beta2: float = 0.9
+    sgd_momentum: float = 0.9
+    sgd_dampening: float = 0.0
+    wdecay: float = 0.0
     midas: bool = False
     depth_net: str = ""  # '' defers to midas; 'tiny' for tests
+    use_cnn: bool = False
+    use_embedding: bool = False
+    n_down: int = 3
     midas_resize: Optional[Tuple[int, int]] = None
     time_dependent: bool = True
     n_freq_xyz: int = 16
@@ -75,6 +98,10 @@ class TrainStepConfig:
     init_param: float = 0.01
     loss: LossConfig = dataclasses.field(default_factory=LossConfig)
     use_motion_seg: bool = False
+    # the depth net's compute: 'float32' or 'bfloat16' (params stay f32)
+    compute_dtype: str = "float32"
+    remat_depth: bool = False
+    log_grad_stats: bool = False
     use_pallas_sf_chain: str = "auto"
     use_pallas_loss: str = "auto"
 
@@ -94,17 +121,25 @@ class SceneFlowMotionFieldStep:
         if net not in DEPTH_NETS:
             raise ValueError(f"depth_net={cfg.depth_net!r} not in "
                              f"{DEPTH_NETS}")
-        for name in ("use_pallas_sf_chain", "use_pallas_loss"):
-            if getattr(cfg, name) not in FUSED_MODES:
+        for name, allowed in (("use_pallas_sf_chain", FUSED_MODES),
+                              ("use_pallas_loss", FUSED_MODES),
+                              ("compute_dtype", tuple(COMPUTE_DTYPES)),
+                              ("optim", OPTIMS)):
+            if getattr(cfg, name) not in allowed:
                 raise ValueError(f"{name}={getattr(cfg, name)!r} not in "
-                                 f"{FUSED_MODES}")
-        # Float32 everywhere, as the JAX package's default float32 compute:
-        # no TF32 in cuDNN convolutions or in matrix products.
+                                 f"{allowed}")
+        # No TF32 in cuDNN convolutions or in matrix products: float32
+        # compute is float32, as in the JAX package (bfloat16 convolutions
+        # do not use the switch).
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.chain_fused = self._fused(cfg.use_pallas_sf_chain)
+        self.compute_dtype = COMPUTE_DTYPES[cfg.compute_dtype]
+        # the chain follows the embedded MLP, which a CNN field does not
+        # have (JAX step.py _sf_use_pallas, _sf_chain_on)
+        self.chain_fused = (not cfg.use_cnn
+                            and self._fused(cfg.use_pallas_sf_chain))
         self.loss_fused = self._fused(cfg.use_pallas_loss)
         gen = torch.Generator().manual_seed(seed)
         if net == "tiny":
@@ -113,41 +148,83 @@ class SceneFlowMotionFieldStep:
             net_depth = MidasNet(non_negative=True, normalize_input=True,
                                  resize=cfg.midas_resize, generator=gen)
         else:
-            net_depth = HourglassModelEmbed(generator=gen)
+            net_depth = HourglassModelEmbed(use_embedding=cfg.use_embedding,
+                                            generator=gen)
         self.net_depth = net_depth.to(self.device).eval()
-        self.net_sf = SceneFlowFieldNet(
-            time_dependent=cfg.time_dependent, n_freq_xyz=cfg.n_freq_xyz,
-            n_freq_t=cfg.n_freq_t, net_width=cfg.net_width,
-            n_layers=cfg.n_layers, init_type=cfg.init_type,
-            init_param=cfg.init_param, generator=gen,
-        ).to(self.device)
+        if cfg.use_cnn:
+            net_sf = FCNUnet(
+                4 if cfg.time_dependent else 3, n_down=cfg.n_down, feat=32,
+                block_type="double_conv", out_channel=3, norm="none",
+                activation="lrelu", pad_type="reflect", generator=gen)
+        else:
+            net_sf = SceneFlowFieldNet(
+                time_dependent=cfg.time_dependent, n_freq_xyz=cfg.n_freq_xyz,
+                n_freq_t=cfg.n_freq_t, net_width=cfg.net_width,
+                n_layers=cfg.n_layers, init_type=cfg.init_type,
+                init_param=cfg.init_param, generator=gen)
+        self.net_sf = net_sf.to(self.device)
         self.opt_depth, self.opt_sf = self.make_optimizers()
 
     def _fused(self, mode: str) -> bool:
         return mode == "on" or (mode == "auto"
                                 and self.device.type == "cuda")
 
-    def make_optimizers(self) -> Tuple[torch.optim.Adam, torch.optim.Adam]:
-        """The depth net's Adam and the scene-flow net's (reference
-        models/scene_flow_motion_field.py:112-115); parameters whose
+    def make_optimizers(self) -> Tuple[torch.optim.Optimizer,
+                                       torch.optim.Optimizer]:
+        """The depth net's optimizer and the scene-flow net's (reference
+        models/scene_flow_motion_field.py:112-115, models/netinterface.py:
+        125-135): Adam, or SGD with momentum, dampening and weight decay,
+        whose semantics the JAX ``make_tx`` chain copies. Parameters whose
         gradients are None are not stepped."""
         cfg = self.cfg
-        kw = dict(betas=(cfg.adam_beta1, cfg.adam_beta2), eps=1e-8)
-        return (torch.optim.Adam(self.net_depth.parameters(), lr=cfg.lr,
-                                 **kw),
-                torch.optim.Adam(self.net_sf.parameters(),
-                                 lr=cfg.lr * cfg.scene_lr_mul, **kw))
+        if cfg.optim == "sgd":
+            def make(params, lr):
+                return torch.optim.SGD(params, lr=lr,
+                                       momentum=cfg.sgd_momentum,
+                                       dampening=cfg.sgd_dampening,
+                                       weight_decay=cfg.wdecay)
+        else:
+            def make(params, lr):
+                return torch.optim.Adam(
+                    params, lr=lr, betas=(cfg.adam_beta1, cfg.adam_beta2),
+                    eps=1e-8)
+        return (make(self.net_depth.parameters(), cfg.lr),
+                make(self.net_sf.parameters(), cfg.lr * cfg.scene_lr_mul))
 
     @property
-    def optimizers(self) -> Tuple[torch.optim.Adam, torch.optim.Adam]:
+    def optimizers(self) -> Tuple[torch.optim.Optimizer,
+                                  torch.optim.Optimizer]:
         """(depth, scene flow): the order of a checkpoint's ``optimizers``."""
         return self.opt_depth, self.opt_sf
 
     # -------------------------------------------------------------- forwards
 
+    def _apply_depth(self, img: torch.Tensor) -> torch.Tensor:
+        """The depth net on ``img`` in the compute dtype, float32 out (JAX
+        step.py:270-283); rematerialized in the backward pass with
+        ``remat_depth`` when gradients are being taken."""
+        if self.cfg.remat_depth and torch.is_grad_enabled():
+            return checkpoint(self._depth_fn, img, use_reentrant=False)
+        return self._depth_fn(img)
+
+    def _depth_fn(self, img: torch.Tensor) -> torch.Tensor:
+        dtype, net = self.compute_dtype, self.net_depth
+        if dtype == torch.float32:
+            return net(img)
+        tensors = dict(net.named_parameters())
+        tensors.update(net.named_buffers())
+        cast = {k: v.to(dtype) if v.is_floating_point() else v
+                for k, v in tensors.items()}
+        return functional_call(net, cast, (img.to(dtype),)).float()
+
     def _apply_sf(self, pts, ts):
-        """One field query, divided by ``sf_mag_div``."""
-        sf = self.net_sf(pts, ts if self.cfg.time_dependent else None)
+        """One field query, divided by ``sf_mag_div``; the CNN field reads
+        ``[pts, t]`` (JAX step.py:297-303)."""
+        td = self.cfg.time_dependent
+        if self.cfg.use_cnn:
+            sf = self.net_sf(torch.cat([pts, ts], dim=-1) if td else pts)
+        else:
+            sf = self.net_sf(pts, ts if td else None)
         return sf / self.cfg.loss.sf_mag_div
 
     def _sf_multi_step(self, pts, ts, time_step, steps: int,
@@ -195,7 +272,7 @@ class SceneFlowMotionFieldStep:
         """One depth forward over both frames: ``(depth_1, depth_2)``."""
         b = batch["img_1"].shape[0]
         with torch.set_grad_enabled(depth_grad):
-            depths = self.net_depth(
+            depths = self._apply_depth(
                 torch.cat([batch["img_1"], batch["img_2"]], dim=0))
         return depths[:b], depths[b:]
 
@@ -279,9 +356,30 @@ class SceneFlowMotionFieldStep:
             opt.zero_grad(set_to_none=True)
         total, logs = self.loss_and_logs(batch, int(steps), bool(warm))
         total.backward()
+        if self.cfg.log_grad_stats:
+            logs.update(self.grad_stats())
         for opt in self.optimizers:
             opt.step()
         return {k: v.detach() for k, v in logs.items()}
+
+    def grad_stats(self) -> Dict[str, torch.Tensor]:
+        """Each net's global gradient norm and largest absolute gradient,
+        device scalars (JAX step.py:613-622). A net without gradients (the
+        depth net in warm-up) gives 0, as the JAX ``stop_gradient``
+        does."""
+        out = {}
+        for name, net in (("depth", self.net_depth), ("sf", self.net_sf)):
+            grads = [p.grad for p in net.parameters() if p.grad is not None]
+            zero = torch.zeros((), device=self.device)
+            if grads:
+                norms = torch.stack([torch.linalg.vector_norm(g)
+                                     for g in grads])
+                maxes = torch.stack([g.abs().max() for g in grads])
+                out[f"grad_norm_{name}"] = torch.linalg.vector_norm(norms)
+                out[f"grad_max_{name}"] = torch.maximum(maxes.max(), zero)
+            else:
+                out[f"grad_norm_{name}"] = out[f"grad_max_{name}"] = zero
+        return out
 
     # ------------------------------------------------------ vali/test steps
 
@@ -299,7 +397,7 @@ class SceneFlowMotionFieldStep:
     @torch.no_grad()
     def predict(self, batch: Dict[str, torch.Tensor]):
         """Single-frame inference: depth and the one-step scene flow."""
-        depth = self.net_depth(batch["img"])
+        depth = self._apply_depth(batch["img"])
         cam_1 = Camera(batch["R_1"], batch["t_1"], batch["K"], batch["K_inv"])
         sf_1_2, _, _ = self._sf_multi_step(
             unproject(depth, cam_1), batch["time_stamp_1"],

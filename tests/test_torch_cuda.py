@@ -428,3 +428,108 @@ def test_resume_round_trip_on_the_card(midas_run):
     hist = run.train().history
     assert [r["epoch"] for r in hist] == [2, 2]
     assert all(math.isfinite(r["loss"]) for r in hist)
+
+
+# ------------------------------------------------------------ the variants
+
+@pytest.fixture(scope="module")
+def small_track(tmp_path_factory):
+    """A 64x64 synthetic track (gaps 1 and 2) and a gap-2 pair of it on the
+    CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from argparse import Namespace
+
+    from dynamic_video_depth_tpu_torch.data.batches import collate_batches
+    from dynamic_video_depth_tpu_torch.data.davis_sequence import Dataset
+    from dynamic_video_depth_tpu_torch.data.synthetic import make_track
+
+    root = str(tmp_path_factory.mktemp("variants_track"))
+    make_track(root, track="dog", n_frames=4, h=64, w=64, gaps=(1, 2))
+    ds = Dataset(Namespace(track_id="dog", data_root=root, gaps="2",
+                           subsample=False), "train")
+    host = collate_batches([ds[0]])
+    return {k: torch.as_tensor(v) for k, v in host.items()
+            if k not in ("steps", "pair_path")}
+
+
+def _steps_on(cfg, batch, device, bias_midas=False):
+    """A warm-up and a main step at gap 2 from seed 0 on ``device``: the
+    losses of both, the depth of the pair after them, and the launches."""
+    from dynamic_video_depth_tpu_torch.ops import cuda as kernels
+    from dynamic_video_depth_tpu_torch.runtime.weights import (
+        bias_midas_output)
+    from dynamic_video_depth_tpu_torch.train import SceneFlowMotionFieldStep
+
+    step = SceneFlowMotionFieldStep(cfg, device=device, seed=0)
+    if bias_midas:
+        bias_midas_output(step.net_depth)
+    on = {k: v.to(device) for k, v in batch.items()}
+    kernels.reset_launches()
+    logs = [{k: float(v) for k, v in step.train_step(on, 2, warm).items()}
+            for warm in (True, False)]
+    launches = kernels.launch_counts()
+    with torch.no_grad():
+        depth = step._apply_depth(torch.cat([on["img_1"], on["img_2"]]))
+    return logs, depth.cpu(), launches
+
+
+def test_bf16_midas_step_on_the_card(dev, small_track):
+    """A bfloat16 MiDaS warm-up and main step (the fixture's biased output
+    conv) on the card launch kernels A-D and match the same steps on the
+    CPU in bfloat16 under the CPU tests' relative yardstick
+    (``test_torch_variants.py``): the card's result lies no further from the
+    CPU float32 result than the CPU bfloat16 result does, plus one bfloat16
+    unit of the depth for the depth; so no further from the CPU bfloat16
+    result than twice that."""
+    from dynamic_video_depth_tpu_torch.train import LossConfig, TrainStepConfig
+
+    def cfg(dtype):
+        return TrainStepConfig(
+            lr=1e-6, scene_lr_mul=1000.0, depth_net="midas", midas=True,
+            compute_dtype=dtype, loss=LossConfig(
+                flow_mul=1.0, disp_mul=1.0, acc_mul=1.0, use_disp=True,
+                midas=True))
+
+    card, depth, launches = _steps_on(cfg("bfloat16"), small_track, dev,
+                                      bias_midas=True)
+    assert all(launches[k] > 0 for k in ("warp_fwd", "warp_bwd", "mlp_fwd",
+                                         "chain_bwd", "loss_fwd",
+                                         "loss_bwd")), launches
+    cpu, cpu_depth, _ = _steps_on(cfg("bfloat16"), small_track, "cpu",
+                                  bias_midas=True)
+    f32, f32_depth, _ = _steps_on(cfg("float32"), small_track, "cpu",
+                                  bias_midas=True)
+    ulp = 2.0 ** (torch.floor(torch.log2(f32_depth.abs().max())) - 7).item()
+    gap = (cpu_depth - f32_depth).abs().max().item()
+    assert gap > 0.0
+    assert (depth - f32_depth).abs().max().item() <= gap + ulp
+    assert (depth - cpu_depth).abs().max().item() <= 2 * gap + ulp
+    for c, b, f in zip(card, cpu, f32):
+        for k in ("loss", "flow_loss_1_2", "disp_loss_1_2", "sf_loss"):
+            loss_gap = abs(b[k] - f[k])
+            assert abs(c[k] - f[k]) <= 2 * loss_gap + 1e-4 * abs(f[k]), k
+    assert card[0]["loss"] > 0.0 and card[1]["loss"] > 0.0
+
+
+def test_cnn_sgd_step_on_the_card(dev, small_track):
+    """``--use_cnn`` with SGD on the card: kernels A and D only (no B, no
+    chain), and the losses of a warm-up and a main step agree with the
+    plain CPU steps at rtol 1e-4."""
+    from dynamic_video_depth_tpu_torch.train import LossConfig, TrainStepConfig
+
+    cfg = TrainStepConfig(
+        lr=1e-4, scene_lr_mul=10.0, depth_net="tiny", use_cnn=True,
+        optim="sgd", sgd_dampening=0.1, wdecay=1e-4, log_grad_stats=True,
+        loss=LossConfig(flow_mul=1.0, disp_mul=1.0, acc_mul=1.0,
+                        use_disp=True))
+    card, _, launches = _steps_on(cfg, small_track, dev)
+    assert all(launches[k] > 0 for k in ("warp_fwd", "warp_bwd", "loss_fwd",
+                                         "loss_bwd")), launches
+    assert not any(launches[k] for k in ("mlp_fwd", "mlp_bwd",
+                                         "chain_bwd")), launches
+    cpu, _, _ = _steps_on(cfg, small_track, "cpu")
+    for c, p in zip(card, cpu):
+        for k in p:
+            assert c[k] == pytest.approx(p[k], rel=1e-4, abs=1e-7), k
+    assert card[0]["grad_norm_depth"] == 0.0 < card[1]["grad_norm_depth"]

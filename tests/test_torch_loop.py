@@ -128,10 +128,18 @@ def _defaults(parser):
 
 # Flags both parsers have whose defaults differ on purpose.
 DELIBERATE = {
-    # the JAX parser requires them; the port supports one value of each
+    # the JAX parser requires them; the port defaults to the recipe's
     "net": "scene_flow_motion_field",
     "dataset": "davis_sequence",
 }
+
+# The variant flags: bfloat16 compute, remat, SGD, the CNN field, the
+# hourglass embedding flag and gradient statistics (JAX runtime/config.py,
+# train/scene_flow_motion_field.py).
+VARIANT_FLAGS = (
+    "mixed_precision_training", "full_precision", "loss_scaling",
+    "remat_depth", "optim", "sgd_momentum", "sgd_dampening", "wdecay",
+    "use_cnn", "n_down", "use_embedding", "log_grad_stats")
 
 # The recipe's run flags: checkpoints, resume, loggers, visualization and
 # the chained test entry (JAX runtime/config.py:16-128).
@@ -150,7 +158,8 @@ def test_parser_defaults_match_jax():
     jax = _defaults(_jax_parser())
     shared = sorted(set(port) & set(jax))
     assert set(RUN_FLAGS) <= set(shared)
-    assert len(shared) >= 65
+    assert set(VARIANT_FLAGS) <= set(shared)
+    assert len(shared) >= 78
     differ = {k: port[k] for k in shared if port[k] != jax[k]}
     assert differ == DELIBERATE
     # flags only the port has: the torch device (the JAX package picks its

@@ -8,6 +8,8 @@ Pallas warp and unfused losses (gaps 1 and 2), and the fully fused path,
 the Euler-chain kernel and the fused projection loss with the MiDaS masks
 (gaps 1, 2 and 3)."""
 
+import shutil
+
 import numpy as np
 import pytest
 import jax
@@ -155,9 +157,7 @@ def test_cli_trains_on_cpu(fixture_root, tmp_path):
     assert all(r["acc_reg"] > 0.0 for r in hist[2:])
 
 
-@pytest.mark.parametrize("extra", [["--use_cnn"],
-                                   ["--mixed_precision_training"],
-                                   ["--n_chips", "2"], ["--optim", "sgd"]])
+@pytest.mark.parametrize("extra", [["--n_chips", "2"]])
 def test_cli_refuses_unported_settings(extra):
     with pytest.raises(NotImplementedError, match="not ported"):
         cli.main(CLI_FLAGS + ["--device", "cpu"] + extra)
@@ -204,17 +204,29 @@ def midas_root(tmp_path_factory):
     return root
 
 
+@pytest.fixture
+def run_dir(tmp_path):
+    """A run directory removed when the test ends. A full-width MiDaS run
+    writes ~1.3 GB checkpoints (the net and two optimizer states), which
+    pytest would otherwise keep for three sessions: enough, beside the
+    parallel workers' files, to fill the disk in the middle of a save."""
+    yield str(tmp_path)
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 @pytest.mark.parametrize("fused", ["auto", "on"])
-def test_cli_trains_midas_on_cpu(midas_root, fused, tmp_path):
+def test_cli_trains_midas_on_cpu(midas_root, fused, run_dir):
     """--midas at 64x64, 2 epochs x 2 batches, with the fixture's biased
     MiDaS output: the far-field masks keep mass, every loss is finite and
-    the main loss is above 0."""
+    the main loss is above 0. No per-epoch ``nets/%04d.pt`` (``--save_net
+    0``): the test reads no file of the run."""
     from dynamic_video_depth_tpu_torch.data.batches import (collate_batches,
                                                             to_device)
 
     trainer = cli.build_trainer(
         CLI_BASE + ["--midas", "--data_root", midas_root, "--device", "cpu",
-                    "--logdir", str(tmp_path), "--use_pallas_sf_chain", fused,
+                    "--logdir", run_dir, "--save_net", "0",
+                    "--use_pallas_sf_chain", fused,
                     "--use_pallas_loss", fused])
     step = trainer.step
     assert type(step.net_depth) is MidasNet and step.cfg.loss.midas
