@@ -88,9 +88,34 @@ prints no result; ``--warp_only`` is ``--only warp``.
    npz depth against ``best.pt``; its ``[variants]`` line gives the step's
    median time.
 
-Phases 8 and 9 run after phase 5, in that order; phase 3's trained run is
-kept for phase 8's float32 yardstick, and each run's files are removed once
-checked.
+10. The fleet (``train/fleet.py``, ``parallel/``), on phase 3's track:
+   (a) ``python -m dynamic_video_depth_tpu_torch.train.fleet`` at ``--dp
+   1`` on NCCL with a world of one, the recipe's flags cut to a warm-up and
+   a main epoch of three steps, MiDaS at full width (a biased seed-0 MiDaS
+   that every worker loads through ``DVD_MIDAS_CKPT``): the per-track
+   artifacts, the losses (the main loss above 0), kernels A-D launched on
+   the rank (B's backward runs only at gap 1 in warm-up, so it may not) and
+   only at variants phase 2 checked, and ``--resume -1`` restoring
+   ``checkpoint.pt`` bit for bit; (b) two gloo ranks sharing
+   cuda:0 through ``parallel.multi_video``: ``DataParallelStep`` at batch 2
+   (a pair a rank), a warm-up and a main step, the ranks' parameters equal
+   bit for bit after each, against the one-process step at batch 2 on the
+   card (losses at rtol 1e-4; 99% of each net's parameters within its
+   tolerance: a tenth of lr for the depth net, whose one Adam update is
+   +-lr, rtol 1e-4 / atol 1e-6 for the field), a control, the same steps
+   without the gradients' all-reduce, that must fall below 99% on each
+   net, and a two-video ``MultiVideoOptimizer`` against single-video
+   steps on the same pairs;
+   (c) where the machine has two or more cards, (a) on two tracks at
+   ``--dp 1`` and then at ``--dp 2`` over NCCL, else a line saying that it
+   did not run. Its ``[fleet]`` line gives the median step per rank, the
+   gradient all-reduce's time and bytes a step (gloo through the host: no
+   measure of NCCL), the one-process step beside the data-parallel one,
+   the launches by rank and the phase's wall time.
+
+Phases 8, 9 and 10 run after phase 5, in that order; phase 3's trained run
+is kept for phase 8's float32 yardstick, and each run's files are removed
+once checked.
 
 Phase 1 also counts the tensor-core instructions (HMMA, HGMMA) in the two
 MLP libraries and the warp's shared atomics and global reductions with
@@ -1929,6 +1954,440 @@ def phase_preprocess(dev, workdir: str, card: str, results: dict):
     return counts, variants
 
 
+# phase 10: the fleet (train/fleet.py, parallel/)
+FLEET_TRACK, FLEET_GAPS = "smoke_recipe", (1, 2, 4)  # phase 3's track
+FLEET_TIMED = 4  # main steps timed after the checked ones
+# the card tests' step tolerance (losses), and each net's parameters: at
+# least FLEET_SHARE of them within (atol, rtol) of the reference (the warp's
+# backward adds in atomic order, cuDNN picks its algorithms by batch, and
+# Adam turns a gradient near 0 into a step of either sign). The depth net
+# moves once, by Adam's first update of +-lr whatever the gradient's size,
+# so its atol is a tenth of lr (a flipped sign is 2 lr) and its rtol a few
+# float32 units; the field's is the CPU tests' rtol 1e-4 / atol 1e-6 (lr x
+# scene_lr_mul is 1e-3). A control without the gradients' all-reduce must
+# fall below FLEET_SHARE on each net.
+FLEET_LOSS_RTOL, FLEET_SHARE = 1e-4, 0.99
+FLEET_DEPTH_TOL = (0.1, 1e-6)  # (atol in units of lr, rtol)
+FLEET_SF_TOL = (1e-6, 1e-4)  # (atol, rtol)
+# kernels A-D: B's backward runs only at gap 1 in warm-up on this path
+FLEET_KERNELS = ("warp_fwd", "warp_bwd", "mlp_fwd", "chain_bwd", "loss_fwd",
+                 "loss_bwd")
+
+
+def fleet_flags(dev, workdir: str, logdir: str, tracks: str, *extra) -> list:
+    """The recipe's flags for the fleet entry on ``dev``'s kind of device:
+    a warm-up and a main epoch of three steps on ``tracks``, MiDaS at full
+    width, the fused paths."""
+    return recipe_flags(FLEET_TRACK) + [
+        "--tracks", tracks, "--epoch", "2", "--warm_sf", "1",
+        "--epoch_batches", "3", "--vali_batches", "2", "--batch_size", "1",
+        "--device", dev.type, "--data_root", workdir,
+        "--gaps", ",".join(map(str, FLEET_GAPS)), "--logdir", logdir,
+        "--manual_seed", "0"] + list(extra)
+
+
+def midas_recipe_model(dev, workdir: str):
+    """A MiDaS model of the recipe's configuration on ``dev`` from seed 0,
+    its output conv biased (the fixture's range), and the train dataset."""
+    from dynamic_video_depth_tpu_torch.data import get_dataset
+    from dynamic_video_depth_tpu_torch.runtime.weights import (
+        bias_midas_output)
+    from dynamic_video_depth_tpu_torch.train import cli
+    from dynamic_video_depth_tpu_torch.train.scene_flow_motion_field import (
+        Model)
+
+    opt = cli.build_parser().parse_args(recipe_flags(FLEET_TRACK) + [
+        "--data_root", workdir, "--gaps", ",".join(map(str, FLEET_GAPS)),
+        "--device", str(dev)])
+    model = Model(opt, device=dev, seed=0, pretrained=False)
+    bias_midas_output(model.step.net_depth)
+    return model.step, get_dataset(opt.dataset)(opt, "train")
+
+
+def flat_params(step):
+    import torch
+
+    return torch.cat([p.detach().reshape(-1) for net in
+                      (step.net_depth, step.net_sf)
+                      for p in net.parameters()])
+
+
+def net_params(step) -> list:
+    """Both nets' parameters, detached copies on the CPU."""
+    return [[p.detach().to("cpu", copy=True) for p in net.parameters()]
+            for net in (step.net_depth, step.net_sf)]
+
+
+def compare_steps(step, params, ref_params, logs, ref_logs) -> dict:
+    """Losses and parameters (``net_params``) of a run against the one
+    process's: the largest relative loss difference and, for the depth net
+    and the field, the share of parameters within ``FLEET_DEPTH_TOL`` /
+    ``FLEET_SF_TOL`` and the largest difference in optimizer steps (lr for
+    the depth net, lr x scene_lr_mul for the field)."""
+    loss_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                   for a, b in zip(logs, ref_logs) for k in b)
+    share, in_steps = [], []
+    cfg = step.cfg
+    tols = ((FLEET_DEPTH_TOL[0] * cfg.lr, FLEET_DEPTH_TOL[1]), FLEET_SF_TOL)
+    for ps, qs, lr, (atol, rtol) in zip(
+            params, ref_params, (cfg.lr, cfg.lr * cfg.scene_lr_mul), tols):
+        within, total, most = 0, 0, 0.0
+        for p, q in zip(ps, qs):
+            d = (p - q).abs()
+            within += int((d <= atol + rtol * q.abs()).sum())
+            total += d.numel()
+            most = max(most, float(d.max()))
+        share.append(within / total)
+        in_steps.append(most / lr)
+    return {"loss_err": loss_err, "share": share, "in_steps": in_steps}
+
+
+def steps_agree(cmp: dict) -> bool:
+    """``compare_steps``'s losses within ``FLEET_LOSS_RTOL`` and each net's
+    share at least ``FLEET_SHARE``."""
+    return (cmp["loss_err"] <= FLEET_LOSS_RTOL
+            and min(cmp["share"]) >= FLEET_SHARE)
+
+
+def show_cmp(cmp: dict) -> str:
+    return (f"loss {cmp['loss_err']:.2e}, share within tolerance depth "
+            f"{cmp['share'][0]:.6f} / field {cmp['share'][1]:.6f}, max "
+            f"{cmp['in_steps'][0]:.2f} / {cmp['in_steps'][1]:.2f} optimizer "
+            "steps")
+
+
+def _gloo_rank(rank: int, device: str, rendezvous: str, workdir: str,
+               out: str) -> None:
+    """One of two gloo ranks sharing cuda:0 (phase 10b): ``DataParallelStep``
+    at batch 2 (a pair a rank), a warm-up and a main step, each followed by
+    a bit-for-bit comparison of the two ranks' parameters, then
+    ``FLEET_TIMED`` timed main steps; the control: the same two steps from
+    the same nets without the gradients' all-reduce; a two-video
+    ``MultiVideoOptimizer`` (a pair a rank) against a single-video step on
+    the same pair. Rank 0 saves its parameters after the checked steps to
+    ``out/dp_params.pt`` and the control's to ``out/control_params.pt``.
+    Writes its results to ``out/gloo_rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from dynamic_video_depth_tpu_torch.data.batches import (collate_batches,
+                                                            to_device)
+    from dynamic_video_depth_tpu_torch.ops import cuda as kernels
+    from dynamic_video_depth_tpu_torch.parallel import (
+        DataParallelStep, MultiVideoOptimizer, initialize_distributed)
+
+    dev = torch.device(device)
+    initialize_distributed("gloo", "file://" + rendezvous, 2, rank, dev)
+    res = {"rank": rank}
+    try:
+        step, ds = midas_recipe_model(dev, workdir)
+        pairs = [i for i in range(len(ds)) if ds.gap_of(i) == 2][:2]
+        host = collate_batches([ds[i] for i in pairs])
+        gap = host["steps"]
+        kernels.reset_launches()
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, 1e3 * (time.perf_counter() - t0)
+
+        def same_on_both(flat) -> bool:
+            theirs = flat.clone()
+            dist.broadcast(theirs, 0)
+            ok = torch.tensor([float(torch.equal(flat, theirs))], device=dev)
+            dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+            return bool(ok.item())
+
+        dp = DataParallelStep(step, timed=True)
+        dp.broadcast_state()
+        batch = dp.place(host)
+        logs, bit_equal = [], []
+        for warm in (True, False):
+            logs.append({k: float(v) for k, v in
+                         dp.train_step(batch, gap, warm).items()})
+            bit_equal.append(same_on_both(flat_params(step)))
+        if rank == 0:
+            torch.save(net_params(step), os.path.join(out, "dp_params.pt"))
+        dp.reductions.clear()
+        step_ms = [timed(lambda: dp.train_step(batch, gap, False))[1]
+                   for _ in range(FLEET_TIMED)]
+        res.update(dp_logs=logs, bit_equal=bit_equal, dp_step_ms=step_ms,
+                   reductions=dp.reductions, launches=kernels.launch_counts(),
+                   variants=[[list(k), n] for k, n in
+                             kernels.launch_variants().items()])
+
+        # the control: each rank steps on its own pair's gradients
+        del dp, step
+        torch.cuda.empty_cache()
+        control, _ = midas_recipe_model(dev, workdir)
+        control._reduce_grads = lambda reduce: None
+        cdp = DataParallelStep(control)
+        cdp.broadcast_state()
+        res["control_logs"] = [{k: float(v) for k, v in
+                                cdp.train_step(batch, gap, warm).items()}
+                               for warm in (True, False)]
+        if rank == 0:
+            torch.save(net_params(control),
+                       os.path.join(out, "control_params.pt"))
+        del cdp, control
+        torch.cuda.empty_cache()
+
+        # two videos, a pair each, against a single-video step on the pair
+        mine = to_device(collate_batches([ds[pairs[rank]]]), dev)
+        video, _ = midas_recipe_model(dev, workdir)
+        mvo = MultiVideoOptimizer(video)
+        mvo.broadcast_state(0)
+        mvo_logs = [{k: float(v) for k, v in
+                     mvo.train_step(mine, gap, warm).items()}
+                    for warm in (True, False)]
+        single, _ = midas_recipe_model(dev, workdir)
+        single_logs = [{k: float(v) for k, v in
+                        single.train_step(mine, gap, warm).items()}
+                       for warm in (True, False)]
+        res["mvo"] = compare_steps(video, net_params(video),
+                                   net_params(single), mvo_logs, single_logs)
+        del video, single, mvo
+        torch.cuda.empty_cache()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out, f"gloo_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def phase_fleet_reference(dev, workdir: str):
+    """Phase 10b's yardstick: the one-process step at batch 2 on the same
+    card and pairs from the same nets, a warm-up and a main step, then
+    ``FLEET_TIMED`` timed main steps. Returns the step, its logs, its
+    parameters after the two steps (``net_params``) and the times."""
+    import torch
+
+    from dynamic_video_depth_tpu_torch.data.batches import (collate_batches,
+                                                            to_device)
+
+    step, ds = midas_recipe_model(dev, workdir)
+    pairs = [i for i in range(len(ds)) if ds.gap_of(i) == 2][:2]
+    host = collate_batches([ds[i] for i in pairs])
+    batch, gap = to_device(host, dev), host["steps"]
+    logs = [{k: float(v) for k, v in step.train_step(batch, gap, w).items()}
+            for w in (True, False)]
+    params = net_params(step)
+    ms = []
+    for _ in range(FLEET_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step.train_step(batch, gap, False)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return step, logs, params, ms
+
+
+def check_fleet_run(label: str, out: dict, checked: set, n_ranks: int,
+                    backend: str) -> dict:
+    """A fleet entry run's per-rank summaries: the backend, finite losses,
+    a main loss above 0, kernels A-D launched on every rank and only at
+    variants phase 2 checked. Returns the launches by rank."""
+    ranks = out["ranks"]
+    if len(ranks) != n_ranks or any(r["backend"] != backend for r in ranks):
+        fail(f"{label}: ranks {[(r['rank'], r['backend']) for r in ranks]}"
+             f", want {n_ranks} on {backend}")
+    for r in ranks:
+        recs = r["records"]
+        if len(recs) != 6 or not all(
+                math.isfinite(x[k]) for x in recs for k in
+                ("loss", "flow_loss_1_2", "disp_loss_1_2", "sf_loss",
+                 "acc_reg")):
+            fail(f"{label}: rank {r['rank']}: {len(recs)} steps or a "
+                 "non-finite loss")
+        if not all(x["loss"] > 0 for x in recs if not x["warm"]):
+            fail(f"{label}: rank {r['rank']}: a main loss is not above 0")
+        missing = [k for k in FLEET_KERNELS if r["launches"][k] <= 0]
+        if missing:
+            fail(f"{label}: rank {r['rank']} did not launch {missing}")
+        unchecked = {tuple(k) for k, _ in r["variants"]} - checked
+        if unchecked:
+            fail(f"{label}: rank {r['rank']} launched variants phase 2 did "
+                 f"not check: {sorted(unchecked)}")
+    return {r["rank"]: {k: r["launches"][k] for k in MIDAS_KERNELS}
+            for r in ranks}
+
+
+def phase_fleet(dev, workdir: str, card: str, checked: set) -> dict:
+    """Phase 10, the fleet (``train/fleet.py``, ``parallel/``):
+    (a) the fleet entry on phase 3's track at ``--dp 1`` on NCCL (a world
+    of one): the recipe's flags cut to a warm-up and a main epoch of three
+    steps, MiDaS at full width (every worker loads a biased seed-0 MiDaS
+    through ``DVD_MIDAS_CKPT``), the per-track artifacts, kernels A-D, and
+    ``--resume -1`` restoring ``checkpoint.pt`` bit for bit;
+    (b) two gloo ranks sharing cuda:0 through ``parallel.multi_video``
+    (``_gloo_rank``) against the one-process step at batch 2;
+    (c) with two or more cards, (a) on two tracks at ``--dp 1`` and at
+    ``--dp 2`` over NCCL. Prints ``[fleet]``; returns the launches by run
+    and rank."""
+    import torch
+
+    from dynamic_video_depth_tpu_torch.data.synthetic import make_track
+    from dynamic_video_depth_tpu_torch.models import MidasNet
+    from dynamic_video_depth_tpu_torch.runtime.checkpoint import (
+        read_checkpoint)
+    from dynamic_video_depth_tpu_torch.runtime.weights import (
+        bias_midas_output)
+    from dynamic_video_depth_tpu_torch.train import fleet
+
+    t_phase = time.perf_counter()
+    midas = os.path.join(workdir, "midas_biased.pt")
+    net = MidasNet(non_negative=True, normalize_input=True,
+                   generator=torch.Generator().manual_seed(0))
+    torch.save(bias_midas_output(net).state_dict(), midas)
+    del net
+    launches = {}
+    old_env = os.environ.get("DVD_MIDAS_CKPT")
+    os.environ["DVD_MIDAS_CKPT"] = midas
+    try:
+        # (a) NCCL, a world of one
+        logdir = os.path.join(workdir, "fleet_a")
+        out_a = fleet.main(fleet_flags(dev, workdir, logdir, FLEET_TRACK))
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        launches["nccl_dp1"] = check_fleet_run("fleet (a)", out_a, checked,
+                                               1, backend)
+        track_dir = os.path.join(logdir, FLEET_TRACK)
+        want = [os.path.join(logdir, f) for f in
+                ("epoch_loss.csv", "opt.json", "fleet_rank0.json")]
+        want += [os.path.join(track_dir, f) for f in
+                 ("vali_loss.csv", "checkpoint.pt", "best.pt")]
+        missing = [f for f in want if not os.path.isfile(f)]
+        if missing:
+            fail(f"fleet (a): missing artifacts {missing}")
+        before = read_checkpoint(os.path.join(track_dir, "checkpoint.pt"))
+        fleet.main(fleet_flags(dev, workdir, logdir, FLEET_TRACK,
+                               "--resume", "-1", "--vali_at_start"))
+        after = read_checkpoint(os.path.join(track_dir, "checkpoint.pt"))
+        if after["epoch"] != 2 or not state_equal(
+                [before["nets"], before["optimizers"]],
+                [after["nets"], after["optimizers"]]):
+            fail("fleet (a): --resume -1 did not restore checkpoint.pt bit "
+                 "for bit")
+        del before, after
+        a_ms = out_a["ranks"][0]["step_ms"]
+        shutil.rmtree(logdir)
+
+        # (c) NCCL across cards: two videos at dp 1, then dp 2 (two videos
+        # with four cards, else one)
+        n_cards = torch.cuda.device_count()
+        c_line = (f"NCCL across cards not run: {n_cards} CUDA device "
+                  f"({card})")
+        if n_cards >= 2:
+            make_track(workdir, track="smoke_fleet_b", n_frames=6, h=H, w=W,
+                       gaps=FLEET_GAPS, seed=1)
+            two = f"{FLEET_TRACK},smoke_fleet_b"
+            parts = []
+            for tracks, dp in ((two, 1),
+                               (two if n_cards >= 4 else FLEET_TRACK, 2)):
+                logdir = os.path.join(workdir, f"fleet_c{dp}")
+                out_c = fleet.main(fleet_flags(dev, workdir, logdir, tracks,
+                                               "--dp", str(dp),
+                                               "--batch_size", str(dp)))
+                n_videos = len(tracks.split(","))
+                launches[f"nccl_{n_videos}x{dp}"] = check_fleet_run(
+                    f"fleet (c) {n_videos} x dp {dp}", out_c, checked,
+                    n_videos * dp, "nccl")
+                largest = max([n for r in out_c["ranks"]
+                                for n, _ in r["reductions"]], default=0)
+                grads = [ms for r in out_c["ranks"]
+                         for nbytes, ms in r["reductions"]
+                         if nbytes == largest]
+                steps = "/".join(
+                    f"{statistics.median(r['step_ms'][4:]):.2f}"
+                    for r in out_c["ranks"])
+                parts.append(
+                    f"{n_videos} videos x dp {dp}: median main step {steps} "
+                    "ms by rank" + (f", gradient all-reduce median "
+                                    f"{statistics.median(grads):.2f} ms"
+                                    if grads else ""))
+                shutil.rmtree(logdir)
+            c_line = "NCCL across cards: " + "; ".join(parts)
+    finally:
+        if old_env is None:
+            os.environ.pop("DVD_MIDAS_CKPT", None)
+        else:
+            os.environ["DVD_MIDAS_CKPT"] = old_env
+    if n_cards < 2:
+        print(f"[fleet] {c_line}", flush=True)
+
+    # (b) two gloo ranks sharing cuda:0, and the one-process yardstick
+    torch.cuda.empty_cache()
+    out = os.path.join(workdir, "fleet_b")
+    os.makedirs(out)
+    torch.multiprocessing.spawn(
+        _gloo_rank, args=(str(dev), os.path.join(out, "rendezvous"), workdir,
+                          out),
+        nprocs=2, join=True)
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out, f"gloo_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    ref, ref_logs, ref_params, ref_ms = phase_fleet_reference(dev, workdir)
+    dp = compare_steps(ref, torch.load(os.path.join(out, "dp_params.pt")),
+                       ref_params, ranks[0]["dp_logs"], ref_logs)
+    if not steps_agree(dp):
+        fail(f"fleet (b): DataParallelStep vs the one-process step: "
+             f"{show_cmp(dp)}")
+    control = compare_steps(
+        ref, torch.load(os.path.join(out, "control_params.pt")), ref_params,
+        ranks[0]["control_logs"], ref_logs)
+    if max(control["share"]) >= FLEET_SHARE:
+        fail(f"fleet (b): the check does not tell a step without the "
+             f"gradients' all-reduce from the one-process step: "
+             f"{show_cmp(control)}")
+    for r in ranks:
+        if not all(r["bit_equal"]) or r["dp_logs"] != ranks[0]["dp_logs"]:
+            fail(f"fleet (b): the ranks' parameters or logs differ after a "
+                 f"step: {r['bit_equal']}")
+        if not steps_agree(r["mvo"]):
+            fail(f"fleet (b): rank {r['rank']}'s video vs a single-video "
+                 f"step: {show_cmp(r['mvo'])}")
+        missing = [k for k in FLEET_KERNELS if r["launches"][k] <= 0]
+        unchecked = {tuple(k) for k, _ in r["variants"]} - checked
+        if missing or unchecked:
+            fail(f"fleet (b): rank {r['rank']}: kernels not launched "
+                 f"{missing}, unchecked variants {sorted(unchecked)}")
+    launches["gloo_dp2"] = {r["rank"]: {k: r["launches"][k]
+                                        for k in MIDAS_KERNELS}
+                            for r in ranks}
+    # the gradients' all-reduce is a step's largest reduction
+    largest = max(nbytes for r in ranks for nbytes, _ in r["reductions"])
+    grads = [(nbytes, ms) for r in ranks for nbytes, ms in r["reductions"]
+             if nbytes == largest]
+    if len(grads) != 2 * FLEET_TIMED:
+        fail(f"fleet (b): {len(grads)} gradient all-reduces over "
+             f"{FLEET_TIMED} timed steps on two ranks")
+    del ref
+    shutil.rmtree(out)
+    torch.cuda.empty_cache()
+    dp_steps = "/".join(f"{statistics.median(r['dp_step_ms']):.2f}"
+                        for r in ranks)
+    mvo = "; ".join(show_cmp(r["mvo"]) for r in ranks)
+    print(f"[fleet] {card}: (a) fleet entry, NCCL, 1 video x dp 1, MiDaS "
+          f"{H}x{W}: median step {statistics.median(a_ms[1:3]):.2f} ms "
+          f"warm-up, {statistics.median(a_ms[4:]):.2f} ms main (each "
+          f"phase's first step excluded), launches {launches['nccl_dp1']}; "
+          f"(b) gloo, 2 ranks sharing cuda:0, DataParallelStep at batch 2 "
+          f"(a pair a rank): median main step {dp_steps} ms by rank, "
+          f"gradient all-reduce (gloo through the host, no measure of "
+          f"NCCL) median {statistics.median(ms for _, ms in grads):.2f} ms "
+          f"of {grads[0][0]} bytes a step, beside the one-process step at "
+          f"batch 2 {statistics.median(ref_ms):.2f} ms; DP vs one process: "
+          f"{show_cmp(dp)}; the control without the gradients' all-reduce "
+          f"vs one process: {show_cmp(control)}; two-video "
+          f"MultiVideoOptimizer vs single-video steps by rank: {mvo}; "
+          f"launches {launches['gloo_dp2']};"
+          f" {c_line}; phase wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
 def phase_raft_reference(dev) -> None:
     """RAFT at 64x96 with 3 iterations, the same random weights and
     randomised batch-norm statistics, on the card (the lookup kernel) and
@@ -2073,6 +2532,8 @@ def main() -> None:
         del f32_run
         torch.cuda.empty_cache()
         var_counts, var_variants = phase_variants(dev, workdir, card)
+        torch.cuda.empty_cache()
+        phase_fleet(dev, workdir, card, results["checked"])
         torch.cuda.empty_cache()
     if not (bf16_variants.get(("warp_fwd", 3))
             and var_variants.get(("warp_fwd", 3))):

@@ -2,10 +2,21 @@
 and launch counters. Importing this package builds nothing: a kernel is
 compiled at its first launch on a CUDA tensor (``build.py``)."""
 
+from concurrent.futures import ThreadPoolExecutor
+
 from . import chain_kernel, corr_kernel, loss_kernel, mlp_kernel, warp_kernel
 
 KERNEL_MODULES = (warp_kernel, mlp_kernel, chain_kernel, loss_kernel,
                   corr_kernel)
+
+
+def build_all() -> None:
+    """Build (or find built) every kernel library now, one nvcc each, all
+    at once: a process that starts workers calls it first, so that they
+    load the libraries instead of each compiling them."""
+    with ThreadPoolExecutor(len(KERNEL_MODULES)) as pool:
+        for future in [pool.submit(m._lib) for m in KERNEL_MODULES]:
+            future.result()
 
 
 def reset_launches() -> None:

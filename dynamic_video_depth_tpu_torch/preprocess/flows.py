@@ -19,6 +19,7 @@ setting them.
 
 from __future__ import annotations
 
+import copy
 import os
 from collections import OrderedDict
 from glob import glob
@@ -30,7 +31,8 @@ import torch
 
 from ..ops.grid_sample import backward_warp
 from ..ops.resize import resize_bicubic, resize_bilinear
-from ..runtime.device import resolve_device
+from ..runtime.device import (cyclic_pad, on_device, resolve_device,
+                              slot_devices)
 
 RAFT_RES = (288, 512)
 RAFT_ITERS = 20
@@ -78,17 +80,27 @@ def occlusion_masks(flow_1_2: torch.Tensor, flow_2_1: torch.Tensor,
 
 
 def make_raft_flow_batch_fn(ckpt_path: str | None = None,
-                            device="cuda") -> Callable:
+                            device="cuda", n_chips: int = 1) -> Callable:
     """Batched RAFT predictor ``(im1s, im2s) [N, H, W, 3] -> (f12s, f21s)``
     on ``device`` (tensors there, images in [0, 255]). Both directions ride
     one batch of ``2N``. The official checkpoint at ``ckpt_path`` is loaded
     when that file exists (``runtime/weights.py::load_raft_checkpoint``,
     which raises on a key it does not consume); else random weights from
-    seed 0."""
+    seed 0.
+
+    The ``N`` pairs are padded by cycling them to a multiple of
+    ``n_chips`` and split in order over ``n_chips`` slots (``cuda:0 ..``
+    above one chip; on the CPU, slices through the one net), each slice's
+    pairs, both directions, through its device's replica (JAX
+    flows.py:137-182 splits the ``2N`` rows instead; a slice of whole
+    pairs gives each pair the batch a serial call gives it, and so the
+    serial call's flows, bit for bit). The flows come back on
+    ``device``."""
     from ..models.raft import RAFT
     from ..runtime.weights import load_raft_checkpoint
 
     device = resolve_device(device)
+    devices = slot_devices(device, max(n_chips, 1))
     # float32 as the JAX package computes it: no TF32 in cuDNN convolutions
     # or matrix products, whose error would grow over the iterations
     torch.backends.cudnn.allow_tf32 = False
@@ -96,15 +108,26 @@ def make_raft_flow_batch_fn(ckpt_path: str | None = None,
     net = RAFT(generator=torch.Generator().manual_seed(0))
     if ckpt_path and os.path.isfile(ckpt_path):
         load_raft_checkpoint(net, ckpt_path)
-    net = net.to(device)
+    net = net.to(devices[0])
+    nets = {devices[0]: net}
+    for d in devices:
+        if d not in nets:
+            nets[d] = copy.deepcopy(net).to(d)
 
     def flow_fn(im1s: torch.Tensor, im2s: torch.Tensor):
         n = im1s.shape[0]
+        rows = torch.tensor(cyclic_pad(n, len(devices)), device=im1s.device)
+        outs = []
         with torch.no_grad():
-            _, flow_up = net(torch.cat([im1s, im2s]), torch.cat([im2s, im1s]),
-                             iters=RAFT_ITERS)
-        # rows [0, n) are forward flows, rows [n, 2n) backward flows
-        return flow_up[:n], flow_up[n:]
+            for d, a, b in zip(devices, im1s[rows].chunk(len(devices)),
+                               im2s[rows].chunk(len(devices))):
+                a, b = a.to(d), b.to(d)
+                with on_device(d):
+                    outs.append(nets[d](torch.cat([a, b]), torch.cat([b, a]),
+                                        iters=RAFT_ITERS)[1])
+        fwd = torch.cat([o[:len(o) // 2].to(device) for o in outs])
+        bwd = torch.cat([o[len(o) // 2:].to(device) for o in outs])
+        return fwd[:n], bwd[:n]
 
     return flow_fn
 
@@ -154,13 +177,17 @@ def generate_pair(flow_fn, im1_data: dict, im2_data: dict, device="cuda"):
 
 def process_track(frame_dir: str, out_dir: str,
                   gaps: Sequence[int] = (1, 2, 3, 4, 5, 6, 7, 8),
-                  ckpt_path: str | None = None, device="cuda"):
-    """All (frame, gap) pairs of the track (reference :165-178), one pair
-    per RAFT call on ``device``."""
+                  ckpt_path: str | None = None, device="cuda",
+                  n_chips: int = 1):
+    """All (frame, gap) pairs of the track (reference :165-178), gap after
+    gap, ``n_chips`` pairs a RAFT call on ``device``: one pair a call on
+    one chip, and over ``n_chips`` chips a call's pairs split over them
+    (JAX flows.py:231-274)."""
     device = resolve_device(device)
     os.makedirs(out_dir, exist_ok=True)
     files = sorted(glob(join(frame_dir, "frame_*.npz")))
-    flow_fn = make_raft_flow_fn(ckpt_path, device)
+    n_chips = max(n_chips, 1)
+    flow_fn = make_raft_flow_batch_fn(ckpt_path, device, n_chips)
 
     def load(i):
         return dict(np.load(files[i], allow_pickle=True))
@@ -170,7 +197,7 @@ def process_track(frame_dir: str, out_dir: str,
     # each frame across all gaps, but an unbounded cache holds the whole
     # track (~1 GB for a reference-scale track)
     prepped: OrderedDict = OrderedDict()
-    max_cached = 64
+    max_cached = max(64, 4 * n_chips)
 
     def prep(i):
         if i in prepped:
@@ -181,10 +208,13 @@ def process_track(frame_dir: str, out_dir: str,
                 prepped.popitem(last=False)
         return prepped[i]
 
-    for g in gaps:
-        for i in range(len(files) - g):
-            j = i + g
-            out = postprocess_pair(*flow_fn(prep(i), prep(j)), (h, w))
+    pairs = [(i, i + g) for g in gaps for i in range(len(files) - g)]
+    for lo in range(0, len(pairs), n_chips):
+        chunk = pairs[lo:lo + n_chips]
+        f12s, f21s = flow_fn(torch.stack([prep(i) for i, _ in chunk]),
+                             torch.stack([prep(j) for _, j in chunk]))
+        for (i, j), f12, f21 in zip(chunk, f12s, f21s):
+            out = postprocess_pair(f12, f21, (h, w))
             out["frame_id_1"] = i
             out["frame_id_2"] = j
             np.savez(join(out_dir, f"flowpair_{i:05d}_{j:05d}.npz"), **out)

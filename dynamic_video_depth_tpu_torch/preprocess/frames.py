@@ -17,6 +17,7 @@ the bilinear resizes (``ops/resize.py``, on the CPU). Per track:
 
 from __future__ import annotations
 
+import copy
 import os
 from os.path import join
 from typing import Callable, Dict, List, Optional
@@ -25,7 +26,8 @@ import numpy as np
 import torch
 
 from ..ops.resize import resize_bilinear
-from ..runtime.device import resolve_device
+from ..runtime.device import (cyclic_pad, on_device, resolve_device,
+                              slot_devices)
 
 
 def flip_world_to_cam(pose_w2c: np.ndarray) -> np.ndarray:
@@ -279,16 +281,22 @@ def process_davis_track(
     return s
 
 
-def make_midas_depth_fn(resize: Optional[tuple] = None,
-                        device="cuda") -> Callable:
+def make_midas_depth_fn(resize: Optional[tuple] = None, device="cuda",
+                        n_chips: int = 1) -> Callable:
     """A batched depth predictor ``[B, H, W, 3] in [0, 1] -> [B, H, W]``
     (numpy in and out) on ``device``: MiDaS with the pretrained checkpoint
     at ``runtime/weights.py::MIDAS_PRETRAIN_PATH`` when that file exists,
-    else random weights from seed 0. The net is ``depth_fn.net``."""
+    else random weights from seed 0. The net is ``depth_fn.net``.
+
+    A batch is padded by cycling its frames to a multiple of ``n_chips``
+    and split in order over ``n_chips`` slots (``cuda:0 ..`` above one
+    chip; on the CPU, slices through the one net), each slice through its
+    device's replica (JAX frames.py:287-337)."""
     from ..models.midas import MidasNet
     from ..runtime.weights import MIDAS_PRETRAIN_PATH, load_midas_checkpoint
 
     dev = resolve_device(device)
+    devices = slot_devices(dev, max(n_chips, 1))
     # float32 as the JAX package computes it: no TF32 in cuDNN convolutions
     # or matrix products (preprocessing builds no train step, which would
     # turn it off)
@@ -298,12 +306,22 @@ def make_midas_depth_fn(resize: Optional[tuple] = None,
                    generator=torch.Generator().manual_seed(0))
     if os.path.isfile(MIDAS_PRETRAIN_PATH):
         load_midas_checkpoint(net, MIDAS_PRETRAIN_PATH)
-    net = net.to(dev)
+    net = net.to(devices[0])
+    nets = {devices[0]: net}
+    for d in devices:
+        if d not in nets:
+            nets[d] = copy.deepcopy(net).to(d)
 
     def depth_fn(imgs: np.ndarray) -> np.ndarray:
-        x = torch.from_numpy(np.ascontiguousarray(imgs, np.float32)).to(dev)
+        arr = np.ascontiguousarray(imgs, np.float32)
+        n = arr.shape[0]
+        arr = arr[cyclic_pad(n, len(devices))]
+        outs = []
         with torch.no_grad():
-            return net(x).cpu().numpy()
+            for d, part in zip(devices, np.split(arr, len(devices))):
+                with on_device(d):
+                    outs.append(nets[d](torch.from_numpy(part).to(d)))
+        return np.concatenate([o.cpu().numpy() for o in outs])[:n]
 
     depth_fn.net = net
     return depth_fn

@@ -12,7 +12,10 @@ Reads the raw inputs:
 and writes <out_root>/{frames_midas,flow_pairs,sequences_select_pairs_midas}/
 <track>/... in the reference layout. MiDaS (stage 1) and RAFT (stage 2) run
 on ``--device``; each loads its pretrained torch checkpoint when the file
-exists and otherwise runs random weights from seed 0.
+exists and otherwise runs random weights from seed 0. ``--n_chips N``
+(above 1) splits stage 1's batches of ``max(N, 4)`` frames and stage 2's
+batches of N pairs over ``cuda:0 .. N-1`` (JAX scripts/preprocess/
+run_davis.py:62-94); the files are those of a serial run.
 
 Example (the tiny CPU run of the README)::
 
@@ -68,6 +71,9 @@ def build_parser() -> argparse.ArgumentParser:
     a("--raft_ckpt", default="./third_party/RAFT/models/raft-sintel.pth")
     a("--stage", default="all", choices=["all", "frames", "flows", "pairs"])
     a("--device", default="cuda", help="torch device; 'cuda' needs a GPU")
+    a("--n_chips", type=int, default=0,
+      help="split stage-1 MiDaS / stage-2 RAFT batches over this many "
+           "devices (0 = serial single-device)")
     return p
 
 
@@ -78,14 +84,17 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     seq_dir = join(args.out_root, "sequences_select_pairs_midas", args.track,
                    "001")
     gaps = [int(g) for g in args.gaps.split(",")]
+    n_chips = max(args.n_chips, 1)
 
     if args.stage in ("all", "frames"):
         imgs, matrices, K, points_3d, masks = load_davis_track(
             args.raw_root, args.track)
-        depth_fn = frames.make_midas_depth_fn(device=args.device)
+        depth_fn = frames.make_midas_depth_fn(device=args.device,
+                                              n_chips=n_chips)
         s = frames.process_davis_track(imgs, matrices, K, points_3d, masks,
                                        frame_dir, depth_fn, max_width=384,
-                                       multiple_of=64, depth_batch=4)
+                                       multiple_of=64,
+                                       depth_batch=max(args.n_chips, 4))
         print(f"stage 1 done: {len(imgs)} frames, scale {s:.4f}", flush=True)
 
     if args.stage in ("all", "flows"):
@@ -93,7 +102,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             print(f"stage 2: no RAFT checkpoint at {args.raft_ckpt}; random "
                   "weights", flush=True)
         flows.process_track(frame_dir, flow_dir, gaps=gaps,
-                            ckpt_path=args.raft_ckpt, device=args.device)
+                            ckpt_path=args.raft_ckpt, device=args.device,
+                            n_chips=n_chips)
         print("stage 2 done", flush=True)
 
     if args.stage in ("all", "pairs"):

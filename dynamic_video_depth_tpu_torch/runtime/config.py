@@ -125,7 +125,7 @@ def build_test_parser() -> argparse.ArgumentParser:
     a("--vis_workers", default=2, type=int)
     a("--data_root", type=str, default=None)
     a("--n_chips", type=int, default=1,
-      help="devices to spread the frames over; only 1 is ported")
+      help="devices to spread the frames over, a frame each")
     a("--device", default="cuda", help="torch device; 'cuda' needs a GPU")
     return p
 

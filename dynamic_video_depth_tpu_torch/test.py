@@ -6,7 +6,12 @@ Rehydrates a run's options from its ``opt.json`` (the net, the dataset,
 ``davis_sequence`` or ``shutterstock``, and the depth net's compute dtype
 among them), loads ``best.pt`` (or ``nets/%04d.pt`` with ``--epoch N``) and
 runs the refined depth net and the one-step scene flow over every frame of
-the track on ``--device`` (default ``cuda``). Into
+the track on ``--device`` (default ``cuda``). With ``--n_chips N`` the
+frames go in groups of N, frame j of a group on its own device's replica
+of the nets (``cuda:j``; on the CPU the one replica serves every slot),
+the last group padded with its last frame (JAX test.py:90-127); the
+outputs are those of ``--n_chips 1`` and each frame's time is its group's
+over the group's frames. Into
 ``{output_dir}/epoch{best|%04d}_test/`` it writes per frame
 ``batch%04d.npz`` (the JAX package's schema) and the visualizer's PNGs and
 ``index.html``; beside that directory the report
@@ -42,7 +47,7 @@ from .data.batches import to_device
 from .ops import cuda as cuda_kernels
 from .runtime import config
 from .runtime.checkpoint import load_checkpoint, load_opt
-from .runtime.device import resolve_device
+from .runtime.device import on_device, resolve_device, slot_devices
 from .train.losses import disparity_vali_loss
 from .train.scene_flow_motion_field import Model
 from .utils.html import Webpage
@@ -161,10 +166,9 @@ def _sync(device: torch.device) -> None:
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Run the test pass; returns the summary it writes as json."""
     opt_test = config.parse_test(argv)
-    if opt_test.n_chips != 1:
-        raise NotImplementedError(
-            "not ported to the PyTorch package yet: --n_chips other than 1")
     device = resolve_device(opt_test.device)
+    n_par = max(1, opt_test.n_chips)
+    devices = slot_devices(device, n_par)
     ckpt_file, ckpt_dir = checkpoint_file(opt_test)
     opt_train = Namespace(**load_opt(ckpt_dir))
     if opt_test.data_root:
@@ -175,11 +179,15 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             print(f"Warning: --{k} {v} differs from the checkpoint's "
                   f"{getattr(opt_train, k)}; using the checkpoint's")
 
-    model = Model(opt_train, device=device, pretrained=False)
     dataset = get_dataset(opt_train.dataset)(opt_train, "vali")
     if len(dataset) == 0:
         raise SystemExit("no validation frames found")
-    meta = load_checkpoint(ckpt_file, model.step, load_optimizer=False)
+    replicas = {}
+    for d in devices:
+        if d not in replicas:
+            replicas[d] = Model(opt_train, device=d, pretrained=False)
+            meta = load_checkpoint(ckpt_file, replicas[d].step,
+                                   load_optimizer=False)
     print(f"Loaded {ckpt_file} (epoch {meta.get('epoch', '?')})", flush=True)
 
     epoch_string = "best" if opt_test.epoch < 0 else "%04d" % opt_test.epoch
@@ -198,32 +206,40 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     cuda_kernels.reset_launches()
     t_loop = time.perf_counter()
     try:
-        for i in range(len(dataset)):
-            batch = dataset[i]
+        for lo in range(0, len(dataset), n_par):
+            idxs = list(range(lo, min(lo + n_par, len(dataset))))
+            group = [dataset[i] for i in idxs]
+            padded = group + [group[-1]] * (n_par - len(group))
             t0 = time.perf_counter()
-            dev = to_device(batch, device)
-            pred_t = model.step.predict(dev)
-            _sync(device)
-            t1 = time.perf_counter()
-            losses.append(disparity_vali_loss(pred_t["depth"],
-                                              dev["depth_mvs"]))
-            pred = {k: v.cpu().numpy() for k, v in pred_t.items()}
-            pack = frame_pack(batch, pred)
-            np.savez(join(outdir, "batch%04d" % i), **pack)
-            visualizer.visualize(pack, i, outdir)
-            frame_ms.append(1e3 * (time.perf_counter() - t0))
-            predict_ms.append(1e3 * (t1 - t0))
-            depth_pred.append(pred["depth"][0])
-            depth_nn.append(batch["depth_pred"][0])
-            depth_gt.append(batch["depth_mvs"][0])
-            imgs.append(batch["img"][0])
+            devs = [to_device(b, d) for b, d in zip(padded, devices)]
+            preds_t = []
+            for d, dev in zip(devices, devs):
+                with on_device(d):
+                    preds_t.append(replicas[d].step.predict(dev))
+            for d in set(devices):
+                _sync(d)
+            group_ms = 1e3 * (time.perf_counter() - t0) / len(group)
+            for i, batch, dev, pred_t in zip(idxs, group, devs, preds_t):
+                t1 = time.perf_counter()
+                losses.append(disparity_vali_loss(pred_t["depth"],
+                                                  dev["depth_mvs"]))
+                pred = {k: v.cpu().numpy() for k, v in pred_t.items()}
+                pack = frame_pack(batch, pred)
+                np.savez(join(outdir, "batch%04d" % i), **pack)
+                visualizer.visualize(pack, i, outdir)
+                frame_ms.append(group_ms + 1e3 * (time.perf_counter() - t1))
+                predict_ms.append(group_ms)
+                depth_pred.append(pred["depth"][0])
+                depth_nn.append(batch["depth_pred"][0])
+                depth_gt.append(batch["depth_mvs"][0])
+                imgs.append(batch["img"][0])
         visualizer.flush()
     finally:
         visualizer.close()
     loop_seconds = time.perf_counter() - t_loop
     launches = cuda_kernels.launch_counts()
-    test_loss = float(np.mean(np.asarray(torch.stack(losses).cpu(),
-                                         np.float64)))
+    test_loss = float(np.mean(np.asarray(
+        [float(v) for v in losses], np.float64)))
     print(f"disparity loss vs init: {test_loss:.6g}")
     metrics = depth_metrics(np.stack(depth_pred), np.stack(depth_gt))
     print("depth metrics vs gt:",
@@ -244,7 +260,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     later = predict_ms[1:] or predict_ms
     summary = {
         "checkpoint": ckpt_file, "epoch": meta.get("epoch"),
-        "device": str(device), "frames": len(dataset),
+        "device": str(device), "n_chips": n_par, "frames": len(dataset),
         "disparity_loss": test_loss, "depth_metrics": metrics,
         "predict_ms": predict_ms, "frame_ms": frame_ms,
         "median_predict_ms": statistics.median(later),

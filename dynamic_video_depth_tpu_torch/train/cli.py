@@ -33,8 +33,8 @@ forces float32, ``--loss_scaling`` selects nothing), ``--remat_depth``,
 ``--use_embedding``, ``--log_grad_stats`` (gradient norms and maxima in the
 step logs and ``epoch_loss.csv``) and ``--dataset shutterstock`` (an
 integer ``--track_id`` picks a track by sorted index). ``--n_chips`` other
-than 1 raises (the fleet is not ported); any other unknown flag is an
-argparse error.
+than 1 raises (several chips train through the fleet entry,
+``train/fleet.py``); any other unknown flag is an argparse error.
 
 Example (the canonical DAVIS recipe, ``experiments/davis/train_sequence.sh``
 with this entry)::
@@ -144,14 +144,19 @@ def build_parser() -> argparse.ArgumentParser:
     a("--remat_depth", action="store_true",
       help="recompute the depth forward in the backward pass")
     config.add_run_arguments(p)
-    a("--n_chips", type=int, default=1, help="only 1 is ported")
+    a("--n_chips", type=int, default=1,
+      help="only 1: several chips train through the fleet entry")
     return p
 
 
 def _refuse_unported(opt) -> None:
+    """The JAX entry parses ``--n_chips`` and ignores it; this one refuses
+    it and names the entry that trains over several chips."""
     if opt.n_chips != 1:
         raise NotImplementedError(
-            "not ported to the PyTorch package yet: --n_chips")
+            "--n_chips is not ported to the single-video entry: train over "
+            "several chips with python -m dynamic_video_depth_tpu_torch."
+            "train.fleet --tracks T --dp N")
 
 
 class _RunHooks(BaseLogger):

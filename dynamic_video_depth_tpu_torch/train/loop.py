@@ -37,6 +37,15 @@ def print_step(epoch: int, i: int, n: int, gap: int, warm: bool,
           f"{vals} step_ms {1e3 * seconds:.2f}", flush=True)
 
 
+def group_by_gap(dataset) -> Dict[int, list]:
+    """Sample indices bucketed by frame gap (JAX train/loop.py:72-79), in
+    index order within each gap."""
+    by_gap: Dict[int, list] = {}
+    for i in range(len(dataset)):
+        by_gap.setdefault(dataset.gap_of(i), []).append(i)
+    return by_gap
+
+
 def vis_index(batch_idx: int, n_steps: int, vis_at_start: bool) -> int:
     """Visualization gate index (reference models/scene_flow_motion_field.py
     :216, models/video_base.py:52): the last ``vis_batches`` batches of an
@@ -78,12 +87,8 @@ class Trainer:
 
     def _fixed_groups(self, batch_size: int):
         """Same-gap sample groups of ``batch_size`` (a batch has one gap)."""
-        ds = self.dataset_train
-        by_gap: Dict[int, list] = {}
-        for i in range(len(ds)):
-            by_gap.setdefault(ds.gap_of(i), []).append(i)
         groups = []
-        for _, idxs in sorted(by_gap.items()):
+        for _, idxs in sorted(group_by_gap(self.dataset_train).items()):
             idxs = list(self.rng.permutation(idxs))
             for k in range(0, len(idxs) - batch_size + 1, batch_size):
                 groups.append(tuple(idxs[k:k + batch_size]))

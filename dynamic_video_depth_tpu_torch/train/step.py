@@ -40,7 +40,7 @@ runs eagerly, so nothing is specialized or bucketed per value.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch.func import functional_call
@@ -52,13 +52,15 @@ from ..ops import (Camera, backward_warp, camera_to_world, depth_warp_stage,
                    projection_stage, unproject, unproject_camera)
 from ..ops.cuda.loss_kernel import pack_camera, projection_loss
 from ..runtime.device import resolve_device
-from .losses import (_MASK_EPS, LossConfig, acceleration_reg,
-                     consistency_losses, disparity_vali_loss)
+from .losses import (LossConfig, acceleration_reg, consistency_sums,
+                     disparity_vali_loss, masked_means)
 
 DEPTH_NETS = ("hourglass", "midas", "tiny")
 FUSED_MODES = ("auto", "on", "off")
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 OPTIMS = ("adam", "sgd")
+# sums a tensor over the ranks that split one batch (parallel/multi_video.py)
+Reduce = Callable[[torch.Tensor], torch.Tensor]
 
 
 def effective_depth_net(depth_net: str, midas: bool) -> str:
@@ -293,13 +295,13 @@ class SceneFlowMotionFieldStep:
         pred["sf_by_dep_1_2"] = stage["sf_by_depth"]
         return pred, first_sf, second_sf
 
-    def _fused_loss_forward(self, batch, steps: int, warm: bool,
-                            want_second: bool = False):
-        """The losses with everything between the depth net and the scalars
-        fused (JAX step.py:496-548): the 3-channel warp of the camera-2
-        points (the 4th, warped-depth channel only serves visualization),
-        the chain, then kernel D's four sums. ``depth_1`` enters only the
-        MiDaS mask, without gradient."""
+    def _fused_loss_sums(self, batch, steps: int, warm: bool,
+                         want_second: bool = False):
+        """Kernel D's four sums with everything between the depth net and
+        them fused (JAX step.py:496-548): the 3-channel warp of the
+        camera-2 points (the 4th, warped-depth channel only serves
+        visualization), the chain, then the projection loss. ``depth_1``
+        enters only the MiDaS mask, without gradient."""
         cfg = self.cfg.loss
         cam_1, cam_2 = batch_cameras(batch)
         depth_1, depth_2 = self._depths(batch, depth_grad=not warm)
@@ -315,33 +317,37 @@ class SceneFlowMotionFieldStep:
             global_p1, warped3, sf_1_2, flow, batch["mask_2"],
             depth_1.detach(), pack_camera(cam_2), cfg.use_disp,
             cfg.use_disp_ratio, cfg.midas, warm)
-        denom = sums[3] + _MASK_EPS
-        flow_loss = sums[0] / denom
-        disp_loss = sums[1] / denom
-        sf_loss = sums[2] / denom
-        second = disp_loss if cfg.use_disp else sf_loss
-        main = flow_loss * cfg.flow_mul + second * cfg.disp_mul
-        logs = {"loss": main, "flow_loss_1_2": flow_loss,
-                "disp_loss_1_2": disp_loss, "sf_loss": sf_loss}
-        return main, logs, first_sf, second_sf
+        return sums, first_sf, second_sf
 
-    def loss_and_logs(self, batch, steps: int, warm: bool):
+    def loss_and_logs(self, batch, steps: int, warm: bool,
+                      reduce: Optional[Reduce] = None):
         """(total loss, logs). The depth net takes gradients only outside
-        warm-up."""
+        warm-up. With ``reduce`` (a sum over the ranks that split one
+        batch) the mask mass and the regularizer's element count are the
+        ranks' totals, in one reduction, so each rank's loss is its share
+        of the whole batch's."""
         cfg = self.cfg.loss
         use_reg = (cfg.interp_steps > 0 and (not warm or cfg.warm_reg)
                    and cfg.acc_mul > 0)
         if self.loss_fused:
-            main, logs, first_sf, second_sf = self._fused_loss_forward(
+            sums, first_sf, second_sf = self._fused_loss_sums(
                 batch, steps, warm, want_second=use_reg)
+            mass = sums[3]
         else:
             pred, first_sf, second_sf = self._forward(
                 batch, steps, depth_grad=not warm, want_second=use_reg)
-            main, logs = consistency_losses(pred, batch["flow_1_2"],
-                                            batch["mask_2"], cfg, warm)
+            sums, mass = consistency_sums(pred, batch["flow_1_2"],
+                                          batch["mask_2"], cfg, warm)
+        count = None
+        if reduce is not None:
+            n = float(first_sf.numel()) if use_reg else 0.0
+            totals = reduce(torch.stack([
+                mass.detach(), torch.tensor(n, device=mass.device)]))
+            mass, count = totals[0], totals[1]
+        main, logs = masked_means(sums, mass, cfg)
         total = main * steps if cfg.weight_steps else main
         if use_reg:
-            reg = acceleration_reg(first_sf, second_sf, cfg)
+            reg = acceleration_reg(first_sf, second_sf, cfg, count)
             total = total + reg
             logs["acc_reg"] = reg
         else:
@@ -349,18 +355,46 @@ class SceneFlowMotionFieldStep:
         return total, logs
 
     def train_step(self, batch: Dict[str, torch.Tensor], steps: int,
-                   warm: bool) -> Dict[str, torch.Tensor]:
+                   warm: bool, reduce: Optional[Reduce] = None
+                   ) -> Dict[str, torch.Tensor]:
         """One optimization step; returns the logs as detached scalars on
-        the device (the caller decides when to fetch them)."""
+        the device (the caller decides when to fetch them).
+
+        With ``reduce`` the batch is this rank's share of a batch split
+        over ranks: the losses take the ranks' denominators, the gradients
+        are summed over the ranks in one flattened buffer before the
+        optimizers step (the sum of the shares' gradients is the whole
+        batch's), and the logs are summed too, so they are the whole
+        batch's values."""
         for opt in self.optimizers:
             opt.zero_grad(set_to_none=True)
-        total, logs = self.loss_and_logs(batch, int(steps), bool(warm))
+        total, logs = self.loss_and_logs(batch, int(steps), bool(warm),
+                                         reduce)
         total.backward()
+        if reduce is not None:
+            self._reduce_grads(reduce)
+            keys = sorted(logs)
+            summed = reduce(torch.stack([logs[k].detach() for k in keys]))
+            logs = dict(zip(keys, summed.unbind()))
         if self.cfg.log_grad_stats:
             logs.update(self.grad_stats())
         for opt in self.optimizers:
             opt.step()
         return {k: v.detach() for k, v in logs.items()}
+
+    def _reduce_grads(self, reduce: Reduce) -> None:
+        """Sum every existing gradient over the ranks: one ``reduce`` of
+        their concatenation, copied back. A net without gradients (the
+        depth net in warm-up) has none on any rank."""
+        grads = [p.grad for net in (self.net_depth, self.net_sf)
+                 for p in net.parameters() if p.grad is not None]
+        if not grads:
+            return
+        flat = reduce(torch.cat([g.reshape(-1) for g in grads]))
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
 
     def grad_stats(self) -> Dict[str, torch.Tensor]:
         """Each net's global gradient norm and largest absolute gradient,

@@ -533,3 +533,85 @@ def test_cnn_sgd_step_on_the_card(dev, small_track):
         for k in p:
             assert c[k] == pytest.approx(p[k], rel=1e-4, abs=1e-7), k
     assert card[0]["grad_norm_depth"] == 0.0 < card[1]["grad_norm_depth"]
+
+
+# ------------------------------------------------------ data parallelism
+
+@pytest.fixture(scope="module")
+def pair_batch(tmp_path_factory):
+    """Two gap-2 pairs of a 64x64 synthetic track, as one host batch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from argparse import Namespace
+
+    from dynamic_video_depth_tpu_torch.data.batches import collate_batches
+    from dynamic_video_depth_tpu_torch.data.davis_sequence import Dataset
+    from dynamic_video_depth_tpu_torch.data.synthetic import make_track
+
+    root = str(tmp_path_factory.mktemp("dp_track"))
+    make_track(root, track="dog", n_frames=6, h=64, w=64, gaps=(1, 2))
+    ds = Dataset(Namespace(track_id="dog", data_root=root, gaps="2",
+                           subsample=False), "train")
+    host = collate_batches([ds[0], ds[1]])
+    return {k: v for k, v in host.items() if k not in ("steps", "pair_path")}
+
+
+def _dp_ranks(tmp_path, devices, backend, batch):
+    """One warm-up and one main step at gap 2 of ``DataParallelStep`` over
+    two ranks on ``devices`` (the fused paths; their plain versions on the
+    CPU): each rank's logs and nets."""
+    import pickle
+
+    import torch_parallel_worker as worker
+    from dynamic_video_depth_tpu_torch.train import LossConfig, TrainStepConfig
+
+    cfg = TrainStepConfig(
+        lr=1e-4, scene_lr_mul=10.0, depth_net="tiny",
+        use_pallas_sf_chain="on", use_pallas_loss="on",
+        loss=LossConfig(flow_mul=1.0, disp_mul=1.0, acc_mul=1.0,
+                        use_disp=True))
+    cases = {"dp": dict(kind="dp", cfg=cfg, init=None, batch=batch,
+                        schedule=((2, True), (2, False)))}
+    d = tmp_path / backend / devices[0].replace(":", "")
+    d.mkdir(parents=True)
+    with open(d / "cases.pkl", "wb") as f:
+        pickle.dump(cases, f)
+    torch.multiprocessing.spawn(
+        worker.run, args=(2, str(d / "rendezvous"), str(d / "cases.pkl"),
+                          str(d), devices, backend), nprocs=2, join=True)
+    out = []
+    for r in range(2):
+        with open(d / f"rank{r}.pkl", "rb") as f:
+            out.append(pickle.load(f)["dp"])
+    return out
+
+
+def _check_dp_on_card(card, cpu):
+    import numpy as np
+
+    for a, b in zip(card[0]["state"], card[1]["state"]):  # replicas
+        assert all(np.array_equal(a[k], b[k]) for k in a)
+    for c, p in zip(card[0]["logs"], cpu[0]["logs"]):
+        for k in p:
+            assert c[k] == pytest.approx(p[k], rel=1e-4, abs=1e-7), k
+    assert card[0]["logs"][0]["acc_reg"] == 0.0 < card[0]["logs"][1]["acc_reg"]
+
+
+def test_data_parallel_step_on_the_card_matches_the_cpu(tmp_path,
+                                                        pair_batch):
+    """Two gloo ranks sharing cuda:0 (kernels A-D) take the steps of two
+    gloo ranks on the CPU (the plain versions): the losses at rtol 1e-4,
+    and the ranks' nets bit for bit."""
+    card = _dp_ranks(tmp_path, ["cuda:0", "cuda:0"], "gloo", pair_batch)
+    cpu = _dp_ranks(tmp_path, ["cpu", "cpu"], "gloo", pair_batch)
+    _check_dp_on_card(card, cpu)
+
+
+def test_data_parallel_step_over_nccl(tmp_path, pair_batch):
+    """The same steps on NCCL, a rank a card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("NCCL across cards needs two CUDA devices; this "
+                    f"machine has {torch.cuda.device_count()}")
+    card = _dp_ranks(tmp_path, ["cuda:0", "cuda:1"], "nccl", pair_batch)
+    cpu = _dp_ranks(tmp_path, ["cpu", "cpu"], "gloo", pair_batch)
+    _check_dp_on_card(card, cpu)

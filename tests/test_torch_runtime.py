@@ -421,12 +421,17 @@ def test_test_entry_cuda_without_gpu_raises(monkeypatch):
         test_entry.main(["--checkpoint_path", "run", "--output_dir", "out"])
 
 
-def test_test_entry_refuses_n_chips():
+def test_test_entry_refuses_n_chips(monkeypatch):
+    """``--n_chips`` beyond the cards there are is refused before anything
+    is read (the frames at ``--n_chips`` 2 and 3 are
+    ``tests/test_torch_fleet.py``'s)."""
     from dynamic_video_depth_tpu_torch import test as test_entry
 
-    with pytest.raises(NotImplementedError, match="n_chips"):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="n_chips 2 needs 2 CUDA devices"):
         test_entry.main(["--checkpoint_path", "run", "--output_dir", "out",
-                         "--device", "cpu", "--n_chips", "2"])
+                         "--device", "cuda", "--n_chips", "2"])
 
 
 # -------------------------------------------------------- pretrained depth
