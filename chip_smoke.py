@@ -113,9 +113,42 @@ prints no result; ``--warp_only`` is ``--only warp``.
    measure of NCCL), the one-process step beside the data-parallel one,
    the launches by rank and the phase's wall time.
 
-Phases 8, 9 and 10 run after phase 5, in that order; phase 3's trained run
-is kept for phase 8's float32 yardstick, and each run's files are removed
-once checked.
+11. The input pipeline (``data/prefetch.py``, the loop's log pipeline),
+   the profiler and ShutterStock preprocessing, on phase 3's track with the
+   recipe's flags, four epochs of every pair once (a warm-up, then three
+   main epochs): (a) the float32 recipe from the device cache and with
+   ``--no_device_cache`` at seed 0, the streaming run starting each main
+   step from the cached run's depth-net parameters (two free runs part
+   through the warp backward's atomic order, amplified by training): the
+   losses within rtol 1e-5 step by step, the same pairs, every cached
+   batch (and validation frame) a fresh ``to_device`` of its file bit for
+   bit after training, the cache's bytes the sum of its batches';
+   (b) the same with ``--mixed_precision_training`` streaming and cached,
+   in turns with (a): the median main step at gap 2 over epochs 3-4 (its
+   span on the device clock, and the interval between step-end events),
+   the median data wait, the host time of one batch's read, collate and
+   copy (pageable and pinned) and the cache's bytes; (c) the cached bf16
+   run's ``--profile_dir`` trace of epoch 2: kernels A-D by name, the step
+   and data-wait spans, and the device's idle share of the epoch; (d) the
+   fleet entry at ``--dp 1`` with ``--no_device_cache`` against phase 10
+   (a)'s cached run, losses within rtol 1e-5 over the steps both start
+   from the same state (the warm-up and the first main step); (e)
+   ShutterStock stage 1
+   (``preprocess/run_shutterstock.py``) on 8 synthetic 432x768 frames in
+   memory (``get_im_size``: 224x384) with MiDaS on the card against a CPU
+   run of the same arrays and weights (relative 1e-4), stages 2-3 at gaps
+   1 and 2 on the card (20 lookups a RAFT call), the pairs through
+   ``--dataset shutterstock``; no ``h5py``. Each cached path launches A-D
+   and every variant any path of the phase launched was checked in phase
+   2. Its ``[pipeline]`` lines give these readings.
+
+The trainer reads each step's losses up to 16 steps late, so a ``[slice]`` or ``[variants]`` median step is the step's span on
+the device clock (an event before its first launch to one after its last),
+not a host wall that ends in a synchronisation.
+
+Phases 8, 9, 10 and 11 run after phase 5, in that order; phase 3's trained
+run is kept for phase 8's float32 yardstick, and each run's files are
+removed once checked.
 
 Phase 1 also counts the tensor-core instructions (HMMA, HGMMA) in the two
 MLP libraries and the warp's shared atomics and global reductions with
@@ -2271,6 +2304,7 @@ def phase_fleet(dev, workdir: str, card: str, checked: set) -> dict:
                  "for bit")
         del before, after
         a_ms = out_a["ranks"][0]["step_ms"]
+        rank_a = out_a["ranks"][0]
         shutil.rmtree(logdir)
 
         # (c) NCCL across cards: two videos at dp 1, then dp 2 (two videos
@@ -2385,7 +2419,7 @@ def phase_fleet(dev, workdir: str, card: str, checked: set) -> dict:
           f"launches {launches['gloo_dp2']};"
           f" {c_line}; phase wall {time.perf_counter() - t_phase:.1f} s",
           flush=True)
-    return launches
+    return launches, rank_a
 
 
 def phase_raft_reference(dev) -> None:
@@ -2474,6 +2508,509 @@ def phase_small_reference(dev) -> None:
         fail(f"the slice on the card disagrees with the CPU: {logs}")
 
 
+# phase 11: the input pipeline (data/prefetch.py, the loop's log
+# pipeline), the profiler and ShutterStock preprocessing
+PIPE_TRACK, PIPE_GAPS = "smoke_recipe", (1, 2, 4)  # phase 3's track
+# a warm-up epoch, the traced epoch 2 (--profile_dir), two untraced main
+# epochs whose steps are timed
+PIPE_EPOCHS, PIPE_TIMED = 4, (3, 4)
+# two runs at one seed part once the depth net trains: the warp's backward
+# adds in atomic order and cuDNN's weight gradients may, and training
+# amplifies the last-bit differences (float32 recipe, 24 main steps: up to
+# 1.5e-2 relative on the card). So the streaming run of (a) starts each
+# main step from the cached run's depth-net parameters before that step;
+# its losses are then held to the cached run's at PIPE_RTOL.
+PIPE_RTOL = 1e-5
+LOSS_KEYS = ("loss", "flow_loss_1_2", "disp_loss_1_2", "sf_loss", "acc_reg")
+# the kernels A-D by the names of their CUDA functions in a trace
+TRACE_KERNELS = {"A": ("warp_fwd", "warp_bwd"), "B": ("mlp_fwd",),
+                 "C": ("chain_bwd",), "D": ("loss_fwd", "loss_bwd")}
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+SS_FRAMES, SS_HW, SS_GAPS = 8, (432, 768), (1, 2)
+# stage 1 on the card against the CPU: MiDaS's depth (cuDNN against the
+# CPU's convolutions) and what follows from its scale, relative to each
+# array's largest value, as phase 7 holds the card's losses to the CPU's
+SS_RTOL = 1e-4
+
+
+def pipeline_run(dev, workdir: str, cached: bool, bf16: bool,
+                 profile_dir: str = None, depth_out: list = None,
+                 depth_in: list = None):
+    """The recipe on phase 3's track through the train entry, MiDaS at
+    full width (the fixture's biased output conv): ``PIPE_EPOCHS`` epochs
+    of every pair once, the first a warm-up; no visualization, no per-epoch
+    nets, ``checkpoint.pt`` at the last epoch. Before each main step the
+    depth net's parameters are appended to ``depth_out`` (device copies)
+    or set from the next entry of ``depth_in``. Returns the trainer, the
+    (frame_id_1, frame_id_2) each step took, and the run's launch counts
+    and variants (counts set to 0 just before training)."""
+    import torch
+
+    from dynamic_video_depth_tpu_torch.ops import cuda as kernels_mod
+    from dynamic_video_depth_tpu_torch.runtime.weights import (
+        bias_midas_output)
+    from dynamic_video_depth_tpu_torch.train.cli import build_run
+
+    tag = ("cached" if cached else "streaming") + ("_bf16" if bf16 else "")
+    argv = recipe_flags(PIPE_TRACK) + [
+        "--epoch_batches", str(track_pairs(workdir, PIPE_TRACK)),
+        "--vali_batches", "2", "--batch_size", "1", "--device", str(dev),
+        "--epoch", str(PIPE_EPOCHS), "--warm_sf", "1", "--data_root", workdir,
+        "--track_id", PIPE_TRACK, "--gaps", ",".join(map(str, PIPE_GAPS)),
+        "--logdir", os.path.join(workdir, "pipeline_" + tag),
+        "--manual_seed", "0", "--save_net", "0",
+        "--save_every", str(PIPE_EPOCHS), "--vis_every_train", "0",
+        "--vis_every_vali", "0"]
+    if bf16:
+        argv.append("--mixed_precision_training")
+    if not cached:
+        argv.append("--no_device_cache")
+    if profile_dir:
+        argv += ["--profile_dir", profile_dir]
+    run = build_run(argv)
+    step = run.model.step
+    bias_midas_output(step.net_depth)
+    seen = []
+    train_step = step.train_step
+    states = iter(depth_in) if depth_in is not None else None
+
+    def recording(batch, steps, warm):
+        seen.append(torch.stack([batch["frame_id_1"], batch["frame_id_2"]]))
+        if not warm:
+            params = list(step.net_depth.parameters())
+            if depth_out is not None:
+                depth_out.append([p.detach().clone() for p in params])
+            if states is not None:
+                with torch.no_grad():
+                    for p, q in zip(params, next(states)):
+                        p.copy_(q)
+        return train_step(batch, steps, warm)
+
+    step.train_step = recording
+    kernels_mod.reset_launches()
+    run.trainer.train()
+    torch.cuda.synchronize()
+    counts = kernels_mod.launch_counts()
+    variants = kernels_mod.launch_variants()
+    del step.train_step
+    pairs = [tuple(t.reshape(-1).tolist()) for t in seen]
+    shutil.rmtree(run.logdir)
+    return run.trainer, pairs, counts, variants
+
+
+def losses_agree(a: list, b: list) -> tuple:
+    """Two runs' per-step logs: (every loss within ``PIPE_RTOL``, the
+    largest relative difference, the steps bit-equal)."""
+    worst, equal = 0.0, 0
+    for x, y in zip(a, b):
+        diffs = [abs(x[k] - y[k]) / abs(y[k]) if y[k] else
+                 float(x[k] != y[k]) for k in LOSS_KEYS]
+        worst = max(worst, *diffs)
+        equal += all(x[k] == y[k] for k in LOSS_KEYS)
+    return len(a) == len(b) and worst <= PIPE_RTOL, worst, equal
+
+
+def check_cache(label: str, cache, dev) -> int:
+    """Every kept batch of a ``DeviceCache`` equals a fresh ``to_device``
+    of its source bit for bit, and its bytes are the sum of its batches'
+    sizes. Returns its bytes."""
+    from dynamic_video_depth_tpu_torch.data.batches import to_device
+
+    total = 0
+    for idx in list(cache.keys()):
+        kept = cache.get(idx)[0]
+        if not state_equal(kept, to_device(cache.dataset[idx], dev)):
+            fail(f"pipeline (a): {label}: cached batch {idx} differs from "
+                 "a fresh copy of its file")
+        total += sum(t.numel() * t.element_size() for t in kept.values())
+    if not cache.keys() or cache.nbytes != total:
+        fail(f"pipeline (a): {label}: {cache.nbytes} bytes kept, the "
+             f"batches hold {total}")
+    return total
+
+
+def trace_reading(path: str, steps: int) -> dict:
+    """A ``--profile_dir`` trace: the kernels A-D found by name, the step
+    spans, and the device's idle share of the traced epoch (the window from
+    the first data wait to the last device activity; busy is the union of
+    kernels, copies and memsets)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = collections.Counter(e.get("name") for e in events
+                                if e.get("cat") == "user_annotation")
+    device = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+                    for e in events if e.get("cat") in DEVICE_CATS)
+    names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    found = {k: all(any(n in name for name in names) for n in v)
+             for k, v in TRACE_KERNELS.items()}
+    if spans["dvd/step"] != steps or spans["dvd/data_wait"] != steps or \
+            not all(found.values()) or not device:
+        fail(f"pipeline (c): the trace holds step spans {spans['dvd/step']}"
+             f", data waits {spans['dvd/data_wait']} (want {steps}), "
+             f"kernels {found}, {len(device)} device events")
+    start = min(float(e["ts"]) for e in events
+                if e.get("name") == "dvd/data_wait")
+    end = max(b for _, b in device)
+    busy, cur_a, cur_b = 0.0, None, None
+    for a, b in device:
+        a = max(a, start)
+        if b <= a:
+            continue
+        if cur_b is None or a > cur_b:
+            if cur_b is not None:
+                busy += cur_b - cur_a
+            cur_a, cur_b = a, b
+        else:
+            cur_b = max(cur_b, b)
+    if cur_b is not None:
+        busy += cur_b - cur_a
+    window = end - start
+    return {"idle": 1.0 - busy / window, "window_ms": window / 1e3,
+            "busy_ms": busy / 1e3, "kernels": len(device),
+            "bytes": os.path.getsize(path), "found": found}
+
+
+def step_stats(trainer) -> dict:
+    """Medians over the untraced main epochs: the step at gap 2 (its span
+    on the device clock and the interval between step ends), every main
+    step, and the host's wait for data."""
+    hist = [r for r in trainer.history if r["epoch"] in PIPE_TIMED]
+    gap2 = [r for r in hist if r["gap"] == 2]
+    return {"gap2_ms": statistics.median(1e3 * r["seconds"] for r in gap2),
+            "gap2_interval_ms": statistics.median(1e3 * r["interval"]
+                                                  for r in gap2),
+            "main_ms": statistics.median(1e3 * r["seconds"] for r in hist),
+            "data_ms": statistics.median(1e3 * r["data_time"]
+                                         for r in hist),
+            "n_gap2": len(gap2)}
+
+
+def host_batch_ms(dataset, dev) -> tuple:
+    """Median host ms of one ``dataset[i]`` + collate + copy to the card,
+    synchronised: from pageable numpy (``to_device``), and through pinned
+    tensors (``host_tensors(pin=True)``, the reader thread's half)."""
+    import torch
+
+    from dynamic_video_depth_tpu_torch.data.batches import (collate_batches,
+                                                            host_tensors,
+                                                            to_device)
+
+    walls = {"pageable": [], "pinned": []}
+    for _ in range(2):
+        for i in range(len(dataset)):
+            for kind in walls:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                host = collate_batches([dataset[i]])
+                if kind == "pinned":
+                    host = host_tensors(host, pin=True)
+                to_device(host, dev)
+                torch.cuda.synchronize()
+                walls[kind].append(1e3 * (time.perf_counter() - t))
+    return (statistics.median(walls["pageable"]),
+            statistics.median(walls["pinned"]))
+
+
+def shutterstock_raw(n: int, h: int, w: int):
+    """ShutterStock stage-1 inputs in memory: ``make_raw_davis``'s frames
+    and camera path, an MVS depth per frame (a slanted plane 2-6 m away,
+    invalid (0) in its top quarter), ``T_1_G`` and ``K``."""
+    import numpy as np
+
+    from dynamic_video_depth_tpu_torch.data.synthetic import make_raw_davis
+
+    imgs, matrices, K, _, _ = make_raw_davis(n, h, w, seed=2)
+    yy, xx = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 1, w),
+                         indexing="ij")
+    mvs = []
+    for i in range(n):
+        d = (2.0 + 3.0 * yy + 1.0 * xx + 0.05 * i).astype(np.float32)
+        d[: h // 4] = 0.0
+        mvs.append(d)
+    t_1_g = np.stack([np.linalg.inv(m) for m in matrices])
+    return imgs, mvs, t_1_g, np.repeat(K[None].astype(np.float32), n, 0)
+
+
+def phase_shutterstock(dev, workdir: str) -> tuple:
+    """Phase 11 (e): stage 1 of ``preprocess/run_shutterstock.py`` with
+    MiDaS on the card and on the CPU (the same arrays, seed-0 weights with
+    the fixture's biased output conv), stages 2-3 on the card, the pairs
+    through ``--dataset shutterstock``. Returns the line's text and the
+    launch variants of stages 1-3."""
+    import numpy as np
+
+    from dynamic_video_depth_tpu_torch.data import get_dataset
+    from dynamic_video_depth_tpu_torch.ops import cuda as kernels_mod
+    from dynamic_video_depth_tpu_torch.preprocess import (flows, frames,
+                                                          pairs,
+                                                          run_shutterstock)
+    from dynamic_video_depth_tpu_torch.runtime.weights import (
+        bias_midas_output)
+
+    root, track = os.path.join(workdir, "shutterstock_pre"), "0001"
+    frame_dir = os.path.join(root, "frames_midas", track)
+    flow_dir = os.path.join(root, "flow_pairs", track)
+    seq_dir = os.path.join(root, "sequences_select_pairs_midas", track, "001")
+    cpu_dir = os.path.join(workdir, "shutterstock_cpu")
+    imgs, mvs, t_1_g, K = shutterstock_raw(SS_FRAMES, *SS_HW)
+    wh = run_shutterstock.get_im_size(*SS_HW)
+    if wh != (H, W):
+        fail(f"pipeline (e): get_im_size{SS_HW} = {wh}, want {(H, W)}")
+
+    kernels_mod.reset_launches()
+    t0 = time.perf_counter()
+    midas_hw = run_shutterstock.midas_input_size(*SS_HW)
+    depth_fn = frames.make_midas_depth_fn(resize=midas_hw, device=dev)
+    bias_midas_output(depth_fn.net)
+    scale = run_shutterstock.process_shutterstock_track(
+        imgs, mvs, t_1_g, K, frame_dir, depth_fn)
+    t1 = time.perf_counter()
+    flows.process_track(frame_dir, flow_dir, gaps=SS_GAPS, device=dev)
+    t2 = time.perf_counter()
+    pairs.pack_track(frame_dir, flow_dir, seq_dir, gaps=SS_GAPS)
+    t3 = time.perf_counter()
+    counts = kernels_mod.launch_counts()
+    variants = kernels_mod.launch_variants()
+    n_flows = sum(SS_FRAMES - g for g in SS_GAPS)
+    if counts["corr_lookup"] != flows.RAFT_ITERS * n_flows:
+        fail(f"pipeline (e): {counts['corr_lookup']} lookups for {n_flows} "
+             f"RAFT calls of {flows.RAFT_ITERS} iterations")
+    others = {k: v for k, v in counts.items()
+              if v and k not in PREPROCESS_KERNELS}
+    if others:
+        fail(f"pipeline (e): launched kernels of another path: {others}")
+    del depth_fn
+
+    # stage 1 on the CPU from the same arrays and weights
+    cpu_fn = frames.make_midas_depth_fn(resize=midas_hw, device="cpu")
+    bias_midas_output(cpu_fn.net)
+    t4 = time.perf_counter()
+    cpu_scale = run_shutterstock.process_shutterstock_track(
+        imgs, mvs, t_1_g, K, cpu_dir, cpu_fn)
+    t5 = time.perf_counter()
+    del cpu_fn
+    worst = {}
+    for i in range(SS_FRAMES):
+        name = f"frame_{i:05d}.npz"
+        with np.load(os.path.join(frame_dir, name)) as a, \
+                np.load(os.path.join(cpu_dir, name)) as b:
+            if sorted(a.files) != sorted(b.files):
+                fail(f"pipeline (e): {name} keys {a.files} vs {b.files}")
+            for k in a.files:
+                x, y = a[k], b[k]
+                if x.shape != y.shape or x.dtype != y.dtype or \
+                        not np.isfinite(x).all():
+                    fail(f"pipeline (e): {name}:{k} {x.shape} {x.dtype}")
+                err = float(np.abs(x - y).max() / max(np.abs(y).max(),
+                                                       1e-30))
+                worst[k] = max(worst.get(k, 0.0), err)
+            if a["img"].shape != (H, W, 3):
+                fail(f"pipeline (e): {name} img {a['img'].shape}")
+    if max(worst.values()) > SS_RTOL or \
+            abs(scale - cpu_scale) > SS_RTOL * abs(cpu_scale):
+        fail(f"pipeline (e): stage 1 on the card vs the CPU: scale {scale} "
+             f"vs {cpu_scale}, worst relative difference by key {worst}")
+
+    opt = argparse.Namespace(track_id="0", gaps=",".join(map(str, SS_GAPS)),
+                             subsample=False, data_root=root)
+    ds = get_dataset("shutterstock")(opt, "train")
+    want = sum(SS_FRAMES - 1 - g for g in SS_GAPS)
+    if opt.track_id != track or len(ds) != want:
+        fail(f"pipeline (e): --dataset shutterstock read track "
+             f"{opt.track_id} with {len(ds)} pairs, want {track} with {want}")
+    for i in range(len(ds)):
+        b = ds[i]
+        if b["img_1"].shape != (1, H, W, 3) or \
+                not np.isfinite(b["flow_1_2"]).all():
+            fail(f"pipeline (e): packed pair {i} does not load as a batch")
+    if "h5py" in sys.modules:
+        fail("pipeline (e): h5py was imported")
+    text = (f"(e) ShutterStock {SS_FRAMES} frames {SS_HW[0]}x{SS_HW[1]} -> "
+            f"{wh[0]}x{wh[1]} (MiDaS at {midas_hw}): stage 1 "
+            f"{1e3 * (t1 - t0) / SS_FRAMES:.2f} ms/frame on the card (the "
+            f"MiDaS build included), "
+            f"{1e3 * (t5 - t4) / SS_FRAMES:.2f} on the CPU, scale "
+            f"{scale:.6f} / {cpu_scale:.6f}, card vs CPU worst relative "
+            "difference " + ", ".join(f"{k} {v:.2e}" for k, v in
+                                      sorted(worst.items()))
+            + f" (tol {SS_RTOL}); stage 2 {1e3 * (t2 - t1) / n_flows:.2f} "
+            f"ms/pair over {n_flows} RAFT calls, lookup launches "
+            f"{counts['corr_lookup']} ({counts['corr_lookup'] // n_flows} a "
+            f"call); stage 3 {1e3 * (t3 - t2):.2f} ms; {len(ds)} pairs "
+            f"through --dataset shutterstock")
+    shutil.rmtree(root)
+    shutil.rmtree(cpu_dir)
+    return text, variants
+
+
+def phase_pipeline(dev, workdir: str, card: str, checked: set,
+                   fleet_a: dict) -> dict:
+    """Phase 11, the input pipeline, the profiler and ShutterStock
+    preprocessing, on phase 3's track at full width:
+    (a) the float32 recipe cached and with ``--no_device_cache`` at one
+    seed, the streaming run starting each main step from the cached run's
+    depth-net parameters: the losses within ``PIPE_RTOL`` step by step,
+    the same pairs, every cached batch a fresh copy of its file bit for
+    bit after training, the cache's bytes its batches' sizes;
+    (b) the bf16 recipe streaming and cached (the cached run traced): the
+    median main step at gap 2 and data wait of each of the four runs, the
+    host time of one batch's read, collate and copy, the cache's bytes;
+    (c) the traced epoch 2 of the cached bf16 run (``--profile_dir``):
+    kernels A-D by name, the step spans, the device's idle share;
+    (d) the fleet entry at ``--dp 1`` streaming against phase 10 (a)'s
+    cached run: the losses within ``PIPE_RTOL`` on the steps both runs
+    start from the same state (the warm-up epoch and the first main step;
+    the later ones are printed);
+    (e) ShutterStock preprocessing (``phase_shutterstock``).
+    Prints ``[pipeline]``; returns the launch variants of its paths."""
+    import torch
+
+    from dynamic_video_depth_tpu_torch.data.prefetch import DeviceCache
+    from dynamic_video_depth_tpu_torch.train import fleet
+
+    t_phase = time.perf_counter()
+    n_pairs = track_pairs(workdir, PIPE_TRACK)
+    variants = collections.Counter()
+    stats, hists, pairs_seen = {}, {}, {}
+    cache_bytes = 0
+    trace_dir = os.path.join(workdir, "pipeline_trace")
+    depth_states = []
+    for name, cached, bf16 in (("f32_cached", True, False),
+                               ("f32_streaming", False, False),
+                               ("bf16_streaming", False, True),
+                               ("bf16_cached", True, True)):
+        trainer, pairs_seen[name], counts, run_variants = pipeline_run(
+            dev, workdir, cached, bf16,
+            trace_dir if name == "bf16_cached" else None,
+            depth_out=depth_states if name == "f32_cached" else None,
+            depth_in=depth_states if name == "f32_streaming" else None)
+        if name == "f32_streaming":
+            depth_states.clear()
+        variants.update(run_variants)
+        if isinstance(trainer.train_source, DeviceCache) != cached:
+            fail(f"pipeline: {name} read {type(trainer.train_source)}")
+        if cached:
+            missing = [k for k in MIDAS_KERNELS if counts[k] <= 0]
+            if missing:
+                fail(f"pipeline: the cached {name} path did not launch "
+                     f"{missing} ({counts})")
+        if name == "f32_cached":
+            cache_bytes = check_cache(name, trainer.train_source, dev)
+            check_cache(name + " vali", trainer.vali_source, dev)
+        hists[name] = trainer.history
+        stats[name] = step_stats(trainer)
+        if not all(math.isfinite(r[k]) for r in trainer.history
+                   for k in LOSS_KEYS):
+            fail(f"pipeline: {name}: a non-finite loss")
+        if name == "f32_streaming":
+            host_ms = host_batch_ms(trainer.dataset_train, dev)
+        del trainer
+        torch.cuda.empty_cache()
+
+    # (a) the cache changes nothing
+    ok, worst, equal = losses_agree(hists["f32_cached"],
+                                    hists["f32_streaming"])
+    if not ok or pairs_seen["f32_cached"] != pairs_seen["f32_streaming"]:
+        fail(f"pipeline (a): cached vs streaming float32: losses within "
+             f"{worst:.3e} (tol {PIPE_RTOL}), pairs equal "
+             f"{pairs_seen['f32_cached'] == pairs_seen['f32_streaming']}")
+    _, bf_worst, bf_equal = losses_agree(hists["bf16_cached"],
+                                         hists["bf16_streaming"])
+    if pairs_seen["bf16_cached"] != pairs_seen["f32_cached"]:
+        fail("pipeline: the bf16 runs visited other pairs")
+
+    def show(name):
+        s = stats[name]
+        return (f"{name} gap 2 {s['gap2_ms']:.2f} ms span / "
+                f"{s['gap2_interval_ms']:.2f} ms interval (n {s['n_gap2']}),"
+                f" all main {s['main_ms']:.2f} ms, data wait "
+                f"{s['data_ms']:.3f} ms")
+
+    print(f"[pipeline] {card}: (a) MiDaS {H}x{W} float32 cached vs "
+          f"--no_device_cache (each main step from the cached run's depth "
+          f"parameters), {len(hists['f32_cached'])} steps: losses "
+          f"within {worst:.3e} (tol {PIPE_RTOL}), {equal} steps bit-equal, "
+          f"the same pairs, every cached batch equal to a fresh copy, "
+          f"{cache_bytes} bytes cached ({n_pairs} pairs); bf16 cached vs "
+          f"streaming, each run on its own, within {bf_worst:.3e}, "
+          f"{bf_equal} steps bit-equal",
+          flush=True)
+    print(f"[pipeline] {card}: (b) medians over epochs {PIPE_TIMED} of "
+          f"{PIPE_EPOCHS} (span: the step's device-clock span; interval: "
+          f"from the previous step's end event): "
+          + "; ".join(show(n) for n in ("f32_cached", "f32_streaming",
+                                        "bf16_streaming", "bf16_cached"))
+          + f"; one batch read + collate + copy on the host {host_ms[0]:.3f}"
+          f" ms pageable, {host_ms[1]:.3f} ms pinned", flush=True)
+
+    # (c) the trace
+    reading = trace_reading(os.path.join(trace_dir, "trace.json"), n_pairs)
+    shutil.rmtree(trace_dir)
+
+    print(f"[pipeline] {card}: (c) --profile_dir, cached bf16 epoch 2 of "
+          f"{n_pairs} steps: trace {reading['bytes']} bytes, kernels A-D "
+          f"{reading['found']}, {reading['kernels']} device events; device "
+          f"idle share {reading['idle']:.4f} of {reading['window_ms']:.2f} "
+          f"ms ({reading['busy_ms']:.2f} ms busy, "
+          f"{reading['window_ms'] / n_pairs:.2f} ms a step with the "
+          f"profiler on)", flush=True)
+
+    # (d) the fleet at --dp 1 streaming against phase 10 (a)'s cached run
+    logdir = os.path.join(workdir, "fleet_streaming")
+    old_env = os.environ.get("DVD_MIDAS_CKPT")
+    os.environ["DVD_MIDAS_CKPT"] = os.path.join(workdir, "midas_biased.pt")
+    try:
+        out = fleet.main(fleet_flags(dev, workdir, logdir, FLEET_TRACK,
+                                     "--no_device_cache"))
+    finally:
+        if old_env is None:
+            os.environ.pop("DVD_MIDAS_CKPT", None)
+        else:
+            os.environ["DVD_MIDAS_CKPT"] = old_env
+    check_fleet_run("pipeline (d)", out, checked, 1, "nccl")
+    streamed = out["ranks"][0]
+    for r in out["ranks"]:
+        variants.update({tuple(k): n for k, n in r["variants"]})
+    # the steps both start from the same state: the warm-up epoch and the
+    # first main step
+    same = [i for i, r in enumerate(fleet_a["records"]) if r["warm"]]
+    same.append(len(same))
+    fl_ok, fl_worst, fl_equal = losses_agree(
+        [fleet_a["records"][i] for i in same],
+        [streamed["records"][i] for i in same])
+    _, fl_later, _ = losses_agree(fleet_a["records"], streamed["records"])
+    if not fl_ok or len(fleet_a["records"]) != len(streamed["records"]) \
+            or not fleet_a["cache_bytes"] or \
+            streamed["cache_bytes"] is not None:
+        fail(f"pipeline (d): the fleet's cached run vs streaming over the "
+             f"steps from the same state: losses within {fl_worst:.3e} (tol "
+             f"{PIPE_RTOL}), cache bytes {fleet_a['cache_bytes']} / "
+             f"{streamed['cache_bytes']}")
+    shutil.rmtree(logdir)
+    torch.cuda.empty_cache()
+
+    print(f"[pipeline] {card}: (d) fleet entry, NCCL, 1 video x dp 1: "
+          f"cached ({fleet_a['cache_bytes']} bytes) vs --no_device_cache "
+          f"losses within {fl_worst:.3e} over the {len(same)} steps from "
+          f"the same state ({fl_equal} bit-equal), within {fl_later:.3e} "
+          f"over all {len(streamed['records'])}; median main step "
+          f"{statistics.median(fleet_a['step_ms'][4:]):.2f} ms cached, "
+          f"{statistics.median(streamed['step_ms'][4:]):.2f} ms streaming",
+          flush=True)
+
+    # (e) ShutterStock preprocessing
+    ss_text, ss_variants = phase_shutterstock(dev, workdir)
+    variants.update(ss_variants)
+    unchecked = set(variants) - checked
+    if unchecked:
+        fail(f"pipeline: launched kernel variants phase 2 did not check: "
+             f"{sorted(unchecked)}")
+
+    print(f"[pipeline] {card}: {ss_text}; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return variants
+
+
 # --only: the kernel family's module and phase
 ONLY = {"warp": ("warp_kernel", phase_kernel_a),
         "loss": ("loss_kernel", phase_kernel_d),
@@ -2533,7 +3070,10 @@ def main() -> None:
         torch.cuda.empty_cache()
         var_counts, var_variants = phase_variants(dev, workdir, card)
         torch.cuda.empty_cache()
-        phase_fleet(dev, workdir, card, results["checked"])
+        _, fleet_a = phase_fleet(dev, workdir, card, results["checked"])
+        torch.cuda.empty_cache()
+        pipe_variants = phase_pipeline(dev, workdir, card,
+                                       results["checked"], fleet_a)
         torch.cuda.empty_cache()
     if not (bf16_variants.get(("warp_fwd", 3))
             and var_variants.get(("warp_fwd", 3))):
@@ -2548,7 +3088,8 @@ def main() -> None:
              f"{midas_variants}")
     unchecked = (set(midas_variants) | set(hourglass_variants)
                  | set(pre_variants) | set(bf16_variants)
-                 | set(var_variants)) - results.pop("checked")
+                 | set(var_variants) | set(pipe_variants)) \
+        - results.pop("checked")
     if unchecked:
         fail(f"a path launched kernel variants that phase 2 did not check: "
              f"{sorted(unchecked)}")

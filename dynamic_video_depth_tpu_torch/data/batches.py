@@ -7,7 +7,8 @@ files into flat channel-last numpy batches:
   motion_seg_1 [B,H,W,1], R_1/R_2 [B,3,3] (plain R_c2w), t_1/t_2 [B,3],
   K/K_inv [B,3,3], time_stamp_1/2 [B,H,W,1], time_step [], frame_id_1/2 [B],
   depth_gt_1/depth_pred_1 [B,H,W].
-``to_device`` turns such a batch into tensors on the training device.
+``to_device`` turns such a batch into tensors on the training device
+(``host_tensors`` is its host half, pinned for an asynchronous copy).
 """
 
 from __future__ import annotations
@@ -116,12 +117,28 @@ def frame_batch_from_npz(raw: Dict[str, np.ndarray], idx: int,
     return batch
 
 
-def to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
-    """Numpy arrays (and numpy scalars) -> float32 tensors on ``device``;
-    other values (paths, the int gap) are dropped."""
+def host_tensors(batch: Dict, pin: bool = False) -> Dict:
+    """``to_device``'s host half: numpy arrays (and numpy scalars) ->
+    float32 CPU tensors, page-locked when ``pin`` (a copy from pageable
+    memory is synchronous whatever ``non_blocking`` says); other values
+    are kept as they are."""
     out = {}
     for k, v in batch.items():
         if isinstance(v, (np.ndarray, np.floating)):
-            out[k] = torch.as_tensor(np.asarray(v, np.float32)).to(
-                device, non_blocking=True)
+            v = torch.as_tensor(np.asarray(v, np.float32))
+            if pin:
+                v = v.pin_memory()
+        out[k] = v
+    return out
+
+
+def to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
+    """Numpy arrays (and numpy scalars) -> float32 tensors on ``device``;
+    tensors (``host_tensors``'s) are copied as they are, without waiting
+    for the copy when they are pinned; other values (paths, the int gap)
+    are dropped."""
+    out = {}
+    for k, v in host_tensors(batch).items():
+        if isinstance(v, torch.Tensor):
+            out[k] = v.to(device, non_blocking=True)
     return out

@@ -19,6 +19,7 @@ UNIQUE_PARAMS = frozenset({
     "epoch_batches", "logdir", "full_logdir", "vis_batches_vali",
     "vali_batches", "vali_at_start", "vis_every_vali", "pt_no_overwrite",
     "n_chips", "load_reference_ckpt", "test_template", "device",
+    "workers", "profile_dir", "no_device_cache",
 })
 
 
@@ -59,6 +60,20 @@ def add_run_arguments(parser: argparse.ArgumentParser) -> None:
     a("--vis_param_f", default=None, type=str)
     a("--vis_at_start", action="store_true")
     a("--test_template", type=str, default=None)
+
+
+def add_pipeline_arguments(parser: argparse.ArgumentParser) -> None:
+    """The input pipeline and the profiler (config.py:47, :119-123)."""
+    a = parser.add_argument
+    a("--workers", type=int, default=4,
+      help="kept for the reference's command lines: one reader thread "
+           "loads the batches whatever it says")
+    a("--profile_dir", type=str, default=None,
+      help="write a torch.profiler trace (Chrome trace JSON, trace.json) "
+           "of training epoch min(2, --epoch) here")
+    a("--no_device_cache", action="store_true",
+      help="copy each batch to the card every step instead of keeping "
+           "the video's batches in device memory after their first use")
 
 
 def exprdir_name(opt) -> str:

@@ -143,10 +143,28 @@ def build_parser() -> argparse.ArgumentParser:
       help="force float32 depth compute")
     a("--remat_depth", action="store_true",
       help="recompute the depth forward in the backward pass")
+    add_reference_loss_arguments(p)
     config.add_run_arguments(p)
+    config.add_pipeline_arguments(p)
     a("--n_chips", type=int, default=1,
       help="only 1: several chips train through the fleet entry")
     return p
+
+
+def add_reference_loss_arguments(p: argparse.ArgumentParser) -> None:
+    """The reference's loss flags that no loss of the JAX package reads
+    (JAX train/scene_flow_motion_field.py:38-59): parsed with their
+    defaults so that a reference command line runs; they select
+    nothing."""
+    a = p.add_argument
+    for flag, default in (("--l1_mul", 1e-4), ("--sf_min_mul", 0),
+                          ("--sf_quantile", 0.5), ("--static_mul", 1),
+                          ("--si_mul", 0), ("--cos_mul", 0),
+                          ("--warm_mul", 1)):
+        a(flag, type=float, default=default, help="selects nothing")
+    for flag in ("--one_way", "--static", "--motion_seg_hard",
+                 "--warm_static"):
+        a(flag, action="store_true", help="selects nothing")
 
 
 def _refuse_unported(opt) -> None:
@@ -332,7 +350,7 @@ class Run:
                 return
             pred = numpy_dict(pred)
         outdir = join(self.logdir, "visualize", f"epoch{epoch:04d}_{phase}")
-        output = self.model.pack_output(pred, host)
+        output = self.model.pack_output(pred, numpy_dict(dev))
         # the page is keyed by the gate index, the npz by the batch index
         # (reference scene_flow_motion_field.py:216-225, video_base.py:98)
         self.visualizer.visualize(output, idx + 1000 * epoch, outdir)

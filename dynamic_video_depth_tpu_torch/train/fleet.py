@@ -35,9 +35,15 @@ Each rank also writes ``fleet_rank<r>.json``: its video, device, the kernel
 launches of its run, its step times and per-step logs, and with
 ``--log_time`` the time and size of each of its reductions.
 
+At ``--dp 1`` each rank serves its video's pairs and validation frames
+from a ``DeviceCache`` on its own card (the counterpart of the JAX
+package's per-video ``FleetBatchCache``) unless ``--no_device_cache``; at
+``--dp`` above 1 the rank's share of the batch is collated and copied
+every step, as in ``train_fleet.py``.
+
 Scan dispatch (``--steps_per_dispatch`` other than 1) is refused; the
-device batch cache, the static (gap, warm) buckets, dispatch retries and
-the compilation cache of ``train_fleet.py`` have no counterpart here.
+static (gap, warm) buckets, dispatch retries and the compilation cache of
+``train_fleet.py`` have no counterpart here.
 """
 
 from __future__ import annotations
@@ -57,6 +63,7 @@ import torch
 
 from ..data import get_dataset
 from ..data.batches import collate_batches, to_device
+from ..data.prefetch import DeviceCache
 from ..ops import cuda as cuda_kernels
 from ..parallel import (Layout, MultiVideoDataParallel, MultiVideoOptimizer,
                         initialize_distributed)
@@ -112,6 +119,11 @@ class FleetRank:
                 self.model = Model(o, device=self.device,
                                    seed=opt.manual_seed or 0)
         step = self.model.step
+        self.cache = self.vali_cache = None
+        if layout.dp == 1 and not opt.no_device_cache:
+            self.cache = DeviceCache(self.datasets[self.video], self.device)
+            self.vali_cache = DeviceCache(self.vali_sets[self.video],
+                                          self.device)
         if layout.dp > 1:
             self.fleet = MultiVideoDataParallel(step, layout,
                                                 timed=opt.log_time)
@@ -202,7 +214,11 @@ class FleetRank:
         ds = self.vali_sets[self.video]
         loss = np.zeros(1)
         for fi in range(n_vali):
-            _, logs = self.fleet.vali_step(to_device(ds[fi], self.device))
+            if self.vali_cache is not None:
+                batch = self.vali_cache.get(fi)[0]
+            else:
+                batch = to_device(ds[fi], self.device)
+            _, logs = self.fleet.vali_step(batch)
             loss += (np.asarray([logs["loss"].item()], np.float32)
                      / max(n_vali, 1))
         mean = self._fleet_mean(torch.tensor(loss, dtype=torch.float64,
@@ -254,9 +270,12 @@ class FleetRank:
                     mine = self._draws(rng, orders, gaps, gap_probs,
                                        opt.batch_size)
                     t0 = time.perf_counter()
-                    host = collate_batches([dataset[j] for j in mine])
-                    logs = self.fleet.train_step(
-                        to_device(host, self.device), host["steps"], warm)
+                    if self.cache is not None:
+                        batch, host = self.cache.get(mine[0])
+                    else:
+                        host = collate_batches([dataset[j] for j in mine])
+                        batch = to_device(host, self.device)
+                    logs = self.fleet.train_step(batch, host["steps"], warm)
                     keys = LOG_KEYS + tuple(sorted(set(logs) - set(LOG_KEYS)))
                     local = torch.stack([logs[k] for k in keys])
                     mean = dict(zip(keys, self._fleet_mean(local).tolist()))
@@ -288,6 +307,7 @@ class FleetRank:
                          sorted(cuda_kernels.launch_variants().items(),
                                 key=str)],
             "step_ms": self.step_ms, "records": self.records,
+            "cache_bytes": None if self.cache is None else self.cache.nbytes,
             "reductions": [list(r) for r in reductions],
         }
 

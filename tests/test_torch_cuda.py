@@ -615,3 +615,99 @@ def test_data_parallel_step_over_nccl(tmp_path, pair_batch):
     card = _dp_ranks(tmp_path, ["cuda:0", "cuda:1"], "nccl", pair_batch)
     cpu = _dp_ranks(tmp_path, ["cpu", "cpu"], "gloo", pair_batch)
     _check_dp_on_card(card, cpu)
+
+
+# ------------------------------------------------------- the input pipeline
+
+def test_prefetcher_side_stream_copy_equals_a_synchronous_copy(dev):
+    """Pinned batches copied one ahead on a side stream reach steps that
+    lag behind (a large product queued before each read) and free their
+    batch at once, bit for bit as synchronous copies: the consuming stream
+    waits for each copy, and ``record_stream`` keeps a batch's memory from
+    the next copy until the step has read it."""
+    from dynamic_video_depth_tpu_torch.data.batches import host_tensors
+    from dynamic_video_depth_tpu_torch.data.prefetch import DevicePrefetcher
+
+    gen = torch.Generator().manual_seed(0)
+    hosts = [{"img_1": torch.rand(1, 224, 384, 3, generator=gen).numpy(),
+              "flow_1_2": torch.randn(1, 224, 384, 2, generator=gen).numpy(),
+              "steps": 2, "pair_path": f"pair{i}"} for i in range(12)]
+    items = [(i, host_tensors(h, pin=True)) for i, h in enumerate(hosts)]
+    big = torch.randn(4096, 4096, device=dev)
+    seen = []
+    for i, batch, host in DevicePrefetcher(items, dev):
+        assert host == {"steps": 2, "pair_path": f"pair{i}"}
+        big = big @ big / 64.0  # the consuming stream falls behind
+        seen.append((i, {k: v * 1.0 for k, v in batch.items()}))
+        del batch
+    torch.cuda.synchronize()
+    assert [i for i, _ in seen] == list(range(12))
+    for i, got in seen:
+        for k in ("img_1", "flow_1_2"):
+            want = torch.as_tensor(hosts[i][k]).to(dev)
+            assert torch.equal(got[k], want), (i, k)
+
+
+def test_cached_midas_step_launches_a_to_d_and_matches_streaming(
+        dev, tmp_path):
+    """A 64x64 MiDaS run (the fixture's biased output conv), a warm-up and
+    a main epoch of three steps, from the device cache and with
+    ``--no_device_cache``: the cached run launches kernels A-D, and both
+    give the same losses within rtol 1e-5. Two free runs part once the
+    depth net trains (the warp's backward adds in atomic order, cuDNN's
+    weight gradients may; ~2e-5 after two main steps), so the streaming
+    run starts each main step from the cached run's depth parameters, as
+    ``chip_smoke.py`` phase 11 (a) does."""
+    from dynamic_video_depth_tpu_torch.data.prefetch import DeviceCache
+    from dynamic_video_depth_tpu_torch.data.synthetic import make_track
+    from dynamic_video_depth_tpu_torch.ops import cuda as kernels
+    from dynamic_video_depth_tpu_torch.runtime.weights import (
+        bias_midas_output)
+    from dynamic_video_depth_tpu_torch.train.cli import build_trainer
+
+    root = str(tmp_path)
+    make_track(root, track="dog", n_frames=4, h=64, w=64, gaps=(1, 2))
+    hist, launches, states = {}, {}, []
+    for cached in (True, False):
+        argv = ["--track_id", "dog", "--gaps", "1,2", "--data_root", root,
+                "--midas", "--epoch", "2", "--warm_sf", "1",
+                "--epoch_batches", "3", "--vali_batches", "1",
+                "--batch_size", "1", "--lr", "1e-6", "--scene_lr_mul",
+                "1000", "--time_dependent", "--use_disp", "--manual_seed",
+                "0", "--save_net", "0", "--vis_every_train", "0",
+                "--vis_every_vali", "0", "--logdir",
+                str(tmp_path / f"run{int(cached)}")]
+        if not cached:
+            argv.append("--no_device_cache")
+        trainer = build_trainer(argv)
+        assert isinstance(trainer.train_source, DeviceCache) == cached
+        step = trainer.step
+        bias_midas_output(step.net_depth)
+        feed = None if cached else iter(states)
+
+        def train_step(batch, steps, warm, _step=step, _feed=feed,
+                       _real=step.train_step):
+            if not warm:
+                params = list(_step.net_depth.parameters())
+                if _feed is None:
+                    states.append([p.detach().clone() for p in params])
+                else:
+                    with torch.no_grad():
+                        for p, q in zip(params, next(_feed)):
+                            p.copy_(q)
+            return _real(batch, steps, warm)
+
+        step.train_step = train_step
+        kernels.reset_launches()
+        trainer.train()
+        launches[cached] = kernels.launch_counts()
+        hist[cached] = trainer.history
+    assert all(launches[True][k] > 0 for k in (
+        "warp_fwd", "warp_bwd", "mlp_fwd", "chain_bwd", "loss_fwd",
+        "loss_bwd")), launches[True]
+    assert len(hist[True]) == len(hist[False]) == 6
+    for a, b in zip(hist[True], hist[False]):
+        for k in ("loss", "flow_loss_1_2", "disp_loss_1_2", "sf_loss",
+                  "acc_reg"):
+            assert abs(a[k] - b[k]) <= 1e-5 * abs(b[k]), (k, a, b)
+    assert all(r["loss"] > 0.0 for r in hist[True])

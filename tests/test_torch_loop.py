@@ -153,18 +153,52 @@ RUN_FLAGS = (
     "tensorboard", "tensorboard_keyword", "test_template")
 
 
+# The input pipeline, the profiler, the dataset's flags and the
+# reference's loss flags that select nothing (JAX runtime/config.py,
+# data/davis_sequence.py:27-42, train/scene_flow_motion_field.py:38-59).
+PIPELINE_FLAGS = (
+    "no_device_cache", "profile_dir", "workers", "cache", "repeat",
+    "overfit", "capat", "select", "l1_mul", "one_way", "sf_min_mul",
+    "sf_quantile", "static", "static_mul", "si_mul", "cos_mul",
+    "motion_seg_hard", "warm_mul", "warm_static")
+
+# The JAX flags the port leaves out on purpose, each with its reason.
+ABSENT = {
+    "dense_group_width": "TPU workaround: dense-layer grouping for the MXU",
+    "merge_group_width": "TPU workaround: merge grouping for the MXU",
+    "merge_reducers": "TPU workaround: reduction merging for XLA",
+    "s2d_min_pixels": "TPU workaround: space-to-depth convolutions",
+    "steps_per_dispatch": "TPU workaround: lax.scan dispatch of K steps",
+    "use_pallas_sf": "its off would put kernel B's plain version on the "
+                     "card's main path",
+    "use_pallas_warp": "its off would put kernel A's plain version on the "
+                       "card's main path",
+    "gpu": "reference launcher flag: --device picks the card",
+    "init_url": "reference launcher flag: the fleet entry has its own",
+    "dist_backend": "reference launcher flag: the fleet entry has its own",
+    "multiprocess_distributed": "reference launcher flag: the fleet entry "
+                                "spawns its ranks",
+    "node_rank": "reference launcher flag: one host",
+    "world_size": "reference launcher flag: the fleet entry's layout "
+                  "sets it",
+}
+
+
 def test_parser_defaults_match_jax():
     port = _defaults(cli.build_parser())
     jax = _defaults(_jax_parser())
     shared = sorted(set(port) & set(jax))
     assert set(RUN_FLAGS) <= set(shared)
     assert set(VARIANT_FLAGS) <= set(shared)
-    assert len(shared) >= 78
+    assert set(PIPELINE_FLAGS) <= set(shared)
+    assert len(shared) >= 78 + len(PIPELINE_FLAGS)
     differ = {k: port[k] for k in shared if port[k] != jax[k]}
     assert differ == DELIBERATE
     # flags only the port has: the torch device (the JAX package picks its
     # backend itself)
     assert sorted(set(port) - set(jax)) == ["device"]
+    # flags only the JAX package has: the deliberate absences, no more
+    assert set(jax) - set(port) == set(ABSENT)
 
 
 def test_batch_size_defaults_to_16_and_no_batching_parses():

@@ -323,11 +323,11 @@ def test_exprdir_and_tensorboard_dir_match_jax(flags):
 
 def test_unique_params_are_the_jax_set():
     """The JAX set less its TPU-only names and the flags the port lacks,
-    plus the torch device."""
+    plus the torch device (the pipeline's ``--workers``, ``--profile_dir``
+    and ``--no_device_cache`` are shared)."""
     parser = argparse.ArgumentParser()
     _, jax_unique = jax_config.add_general_arguments(parser)
-    tpu_only = {"gpu", "workers", "profile_dir", "steps_per_dispatch",
-                "no_device_cache", "remat_depth"}
+    tpu_only = {"gpu", "steps_per_dispatch", "remat_depth"}
     assert config.UNIQUE_PARAMS == (jax_unique - tpu_only) | {"device"}
 
 
