@@ -142,11 +142,34 @@ prints no result; ``--warp_only`` is ``--only warp``.
    and every variant any path of the phase launched was checked in phase
    2. Its ``[pipeline]`` lines give these readings.
 
+12. The tools (``dynamic_video_depth_tpu_torch/tools/``) and DAVIS stage 1
+   at DAVIS's raw size: (a) the golden checks through their entry points'
+   ``main`` on fake full-width checkpoints from seeds, in the official
+   layouts (MiDaS in the ``{"model", "optimizer"}`` wrapper with the
+   biased output conv, the hourglass's inner keys with the unused
+   ``uncertainty_layer``, RAFT with the ``module.`` prefix), each at its
+   protocol size on the card (depth 224x384, RAFT 288x512 x 20): freeze
+   (exit 0, the card within the JAX scripts' tolerance of the CPU:
+   relative 1e-3, 0.05 px EPE), recheck (0), another artifact (2), a
+   perturbed golden (1); RAFT launches the lookup 20 times a call at the
+   variant phase 2 checked; (b) ``run_davis.main --stage frames`` on 4
+   synthetic raw 1080x1920 frames in the JPEG layout (MiDaS at 1088x1920,
+   the biased checkpoint of (a)): every frame's depth at the working size
+   and finite, ms a frame; (c) ``step_profile`` on the MiDaS fused step at
+   224x384, gap 2, float32 and bf16 (A-D launched at checked variants and
+   found by name in the trace): busy and idle shares, device time by
+   category, the top 5 convolution shapes; (d) ``roofline`` in float32,
+   TF32 and bf16: the ten shapes with the most time x count, their
+   algorithm class, TFLOP/s and share of the peak, the sums, and the
+   float32 sum beside (c)'s float32 convolution time with their ratio (a
+   reading, not a gate). Its lines are ``[golden]``, ``[davis1080]``,
+   ``[profile]`` and ``[roofline]``, with the phase's wall time.
+
 The trainer reads each step's losses up to 16 steps late, so a ``[slice]`` or ``[variants]`` median step is the step's span on
 the device clock (an event before its first launch to one after its last),
 not a host wall that ends in a synchronisation.
 
-Phases 8, 9, 10 and 11 run after phase 5, in that order; phase 3's trained
+Phases 8, 9, 10, 11 and 12 run after phase 5, in that order; phase 3's trained
 run is kept for phase 8's float32 yardstick, and each run's files are
 removed once checked.
 
@@ -3011,6 +3034,236 @@ def phase_pipeline(dev, workdir: str, card: str, checked: set,
     return variants
 
 
+# phase 12: the tools (tools/) and DAVIS stage 1 at DAVIS's raw size
+DAVIS_RAW_FRAMES, DAVIS_RAW_HW = 4, (1080, 1920)
+PROFILE_ITERS = 2  # main steps in each step_profile trace
+ROOFLINE_REPS = 10  # launches timed per shape and direction
+
+
+def run_tool(main, argv: list) -> tuple:
+    """(exit code, printed text, wall seconds) of a tool's ``main``."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def golden_case(label: str, main, argv: list, golden: str, key: str,
+                perturb, workdir: str) -> tuple:
+    """A golden harness on the card at its protocol size: freeze (exit 0,
+    the card within the tolerance of the CPU), recheck (0), another
+    artifact (2), a perturbed golden (1). Returns (card-vs-CPU error, the
+    freeze run's wall seconds)."""
+    import re
+
+    import numpy as np
+
+    rc, out, secs = run_tool(main, argv + ["--golden", golden, "--freeze"])
+    err = re.search(r"card-vs-CPU: ([0-9.e+-]+)", out)
+    if rc != 0 or err is None:
+        fail(f"golden {label}: freeze exited {rc}: {out}")
+    rc, out, _ = run_tool(main, argv + ["--golden", golden])
+    if rc != 0 or "vs frozen golden" not in out:
+        fail(f"golden {label}: recheck exited {rc}: {out}")
+    other = os.path.join(workdir, f"{label}_other.pth")
+    with open(other, "wb") as f:
+        f.write(b"another artifact")
+    ckpt = argv.index("--ckpt") + 1
+    rc, out, _ = run_tool(main, argv[:ckpt] + [other] + argv[ckpt + 1:]
+                          + ["--golden", golden])
+    if rc != 2:
+        fail(f"golden {label}: another artifact exited {rc}, want 2: {out}")
+    bad = os.path.join(workdir, f"{label}_perturbed.npz")
+    with np.load(golden) as g:
+        d = dict(g)
+    d[key] = perturb(d[key])
+    np.savez(bad, **d)
+    rc, out, _ = run_tool(main, argv + ["--golden", bad])
+    if rc != 1:
+        fail(f"golden {label}: a perturbed golden exited {rc}, want 1: "
+             f"{out}")
+    return float(err.group(1)), secs
+
+
+def phase_tools(dev, workdir: str, card: str, checked: set) -> dict:
+    """Phase 12: (a) the golden checks (``tools/golden_depth.py``,
+    ``tools/golden_raft.py``) on fake full-width checkpoints from seeds, at
+    their protocol sizes on the card; (b) DAVIS stage 1 through
+    ``run_davis.main --stage frames`` on raw 1080x1920 frames; (c) the step
+    profile of the MiDaS fused step at gap 2 in float32 and bf16; (d) the
+    convolution roofline in float32, TF32 and bf16, its float32 sum beside
+    the float32 step's convolution time. Returns the kernel variants its
+    paths launched."""
+    import numpy as np
+    import torch
+
+    from dynamic_video_depth_tpu_torch.data.synthetic import write_raw_davis
+    from dynamic_video_depth_tpu_torch.models import (HourglassModelEmbed,
+                                                      MidasNet)
+    from dynamic_video_depth_tpu_torch.models.raft import RAFT
+    from dynamic_video_depth_tpu_torch.ops import cuda as kernels_mod
+    from dynamic_video_depth_tpu_torch.preprocess import frames, run_davis
+    from dynamic_video_depth_tpu_torch.runtime import weights
+    from dynamic_video_depth_tpu_torch.tools import (golden, golden_depth,
+                                                     golden_raft, roofline,
+                                                     step_profile)
+
+    t_phase = time.perf_counter()
+    variants = collections.Counter()
+
+    # (a) the golden checks on fake checkpoints in the official layouts
+    midas_ckpt = os.path.join(workdir, "midas_cpkt.pt")
+    net = weights.bias_midas_output(MidasNet(
+        generator=torch.Generator().manual_seed(0)))
+    torch.save({"model": net.state_dict(), "optimizer": {}}, midas_ckpt)
+    hg = HourglassModelEmbed(generator=torch.Generator().manual_seed(1))
+    hg_sd = {k.removeprefix("net_depth."): v
+             for k, v in hg.state_dict().items()}
+    hg_sd["uncertainty_layer.0.weight"] = torch.randn(
+        1, 64, 3, 3, generator=torch.Generator().manual_seed(1))
+    hg_sd["uncertainty_layer.0.bias"] = torch.zeros(1)
+    hg_ckpt = os.path.join(workdir, "best_depth_Ours_Bilinear_inc_3_net_G.pth")
+    torch.save(hg_sd, hg_ckpt)
+    raft = RAFT(generator=torch.Generator().manual_seed(3))
+    raft_ckpt = os.path.join(workdir, "raft-sintel.pth")
+    torch.save({"module." + k: v for k, v in raft.state_dict().items()},
+               raft_ckpt)
+    del net, hg, hg_sd, raft
+    lines = []
+    for name, ckpt in (("midas", midas_ckpt), ("hourglass", hg_ckpt)):
+        err, secs = golden_case(
+            name, golden_depth.main,
+            ["--net", name, "--ckpt", ckpt, "--device", str(dev)],
+            os.path.join(workdir, f"golden_{name}.npz"), "prediction",
+            lambda p: p * 1.01, workdir)
+        lines.append(f"{name} depth 224x384 rel_err card-vs-CPU {err:.3e} "
+                     f"(tol 1e-3), freeze run {secs:.2f} s")
+    kernels_mod.reset_launches()
+    err, secs = golden_case(
+        "raft", golden_raft.main,
+        ["--ckpt", raft_ckpt, "--device", str(dev)],
+        os.path.join(workdir, "golden_raft.npz"), "flow",
+        lambda f: f + 0.1, workdir)
+    launches = kernels_mod.launch_counts()["corr_lookup"]
+    variants.update(kernels_mod.launch_variants())
+    # freeze, recheck and the perturbed golden run RAFT on the card
+    if launches != 3 * golden_raft.RAFT_ITERS:
+        fail(f"golden raft: {launches} lookup launches in three calls of "
+             f"{golden_raft.RAFT_ITERS} iterations")
+    lines.append(f"raft 288x512 x {golden_raft.RAFT_ITERS} EPE card-vs-CPU "
+                 f"{err:.3e} px (tol 0.05), freeze run {secs:.2f} s, lookup "
+                 f"{launches // 3} launches a call")
+    for line in lines:
+        print(f"[golden] {card}: {line}; exit codes 0 freeze, 0 recheck, "
+              f"2 another artifact, 1 a perturbed golden", flush=True)
+
+    # (b) DAVIS stage 1 at the raw 1080x1920
+    raw, out = os.path.join(workdir, "davis_raw"), \
+        os.path.join(workdir, "davis_1080")
+    write_raw_davis(raw, "raw1080", DAVIS_RAW_FRAMES, *DAVIS_RAW_HW)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with golden.module_attrs(weights, MIDAS_PRETRAIN_PATH=midas_ckpt):
+        run_davis.main(["--raw_root", raw, "--track", "raw1080",
+                        "--out_root", out, "--stage", "frames",
+                        "--device", str(dev)])
+    torch.cuda.synchronize()
+    stage1_ms = 1e3 * (time.perf_counter() - t0) / DAVIS_RAW_FRAMES
+    wh = frames.working_resolution(*DAVIS_RAW_HW)
+    fdir = os.path.join(out, "frames_midas", "raw1080")
+    depths = []
+    for i in range(DAVIS_RAW_FRAMES):
+        with np.load(os.path.join(fdir, f"frame_{i:05d}.npz")) as f:
+            depths.append(f["depth_pred"])
+            if f["img_orig"].shape != DAVIS_RAW_HW + (3,):
+                fail(f"davis 1080: frame {i} img_orig {f['img_orig'].shape}")
+        if depths[-1].shape != wh or not np.isfinite(depths[-1]).all():
+            fail(f"davis 1080: frame {i} depth {depths[-1].shape}, want {wh}"
+                 f" and finite")
+    print(f"[davis1080] {card}: stage 1 on {DAVIS_RAW_FRAMES} raw "
+          f"{DAVIS_RAW_HW[0]}x{DAVIS_RAW_HW[1]} frames, MiDaS at "
+          f"{frames.midas_input_size(*DAVIS_RAW_HW)}, depth at the working "
+          f"{wh}: {stage1_ms:.1f} ms a frame (JPEG reads, MiDaS, "
+          f"calibration, npz writes); depth {min(map(np.min, depths)):.4g} "
+          f".. {max(map(np.max, depths)):.4g}", flush=True)
+    shutil.rmtree(out)
+
+    # (c) the step profile of the MiDaS fused step at gap 2
+    profiles = {}
+    for label, bf16 in (("float32", False), ("bf16", True)):
+        kernels_mod.reset_launches()
+        outdir = os.path.join(workdir, f"profile_{label}")
+        t0 = time.perf_counter()
+        step_profile.capture(outdir, iters=PROFILE_ITERS, bf16=bf16)
+        counts = kernels_mod.launch_counts()
+        variants.update(kernels_mod.launch_variants())
+        missing = [k for k in FLEET_KERNELS if not counts[k]]
+        if missing:
+            fail(f"profile {label}: the step launched none of {missing}")
+        events, tcard, _ = step_profile.load_trace(outdir)
+        r = step_profile.analyze(events, tcard, top=5)
+        profiles[label] = r
+        hand = {k: v["ms"] for k, v in r["by_category"].items()
+                if k[:2] in ("A ", "B ", "C ", "D ")}
+        if set(hand) < {"A warp", "B mlp_embed", "C chain",
+                        "D projection loss"}:
+            fail(f"profile {label}: the trace lacks kernels A-D: {hand}")
+        cats = ", ".join(f"{k} {v['ms']:.3f}" for k, v in
+                         r["by_category"].items())
+        print(f"[profile] {r['card']}: MiDaS fused 224x384 gap 2 {label}, "
+              f"{r['n_steps']} steps, device span "
+              f"{statistics.median(r['step_spans_ms']):.3f} ms, busy "
+              f"{r['busy_ms']:.3f} ms (share {r['busy_share']:.4f}, idle "
+              f"{r['idle_share']:.4f}), convolutions {r['conv_ms']:.3f} ms; "
+              f"capture and analysis {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        print(f"[profile] {label} by category ms a step: {cats}", flush=True)
+        print(f"[profile] {label} A-D ms a step: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in hand.items()), flush=True)
+        for row in r["conv_by_shape"][:5]:
+            print(f"[profile] {label} conv shape {row['ms']:.3f} ms "
+                  f"{row['shape']}", flush=True)
+        shutil.rmtree(outdir)
+
+    # (d) the roofline of every MiDaS convolution shape
+    sums = {}
+    for dtype in roofline.DTYPES:
+        t0 = time.perf_counter()
+        r = roofline.run(dtype, reps=ROOFLINE_REPS)
+        sums[dtype] = r["sum_step_ms"]
+        c = r["caps"]
+        print(f"[roofline] {r['card']}: {dtype} (peak {r['peak_tflops']:g} "
+              f"TFLOP/s): {r['n_convs']} convolutions of {r['n_shapes']} "
+              f"shapes, {r['gflop_fwd']:.1f} GFLOP a forward; sums fwd "
+              f"{r['sum_ms']['fwd']:.3f} ms, dgrad "
+              f"{r['sum_ms']['dgrad']:.3f}, wgrad {r['sum_ms']['wgrad']:.3f}"
+              f", a step {r['sum_step_ms']:.3f} ms; caps matmul "
+              f"{c['matmul_tflops']:.2f}, conv {c['conv_tflops']:.2f} "
+              f"TFLOP/s; {time.perf_counter() - t0:.1f} s", flush=True)
+        for rows in roofline.top_shapes(r, 10):
+            print(f"[roofline] {dtype} {rows[0]['shape']} "
+                  f"x{rows[0]['count']}: " + "; ".join(
+                      f"{x['dir']} {x['algorithm']} {x['ms']:.4f} ms "
+                      f"{x['tflops']:.2f} TFLOP/s share {x['share']:.4f}"
+                      for x in rows)
+                  + f"; ms x count {sum(x['ms_x_count'] for x in rows):.3f}",
+                  flush=True)
+    step_conv = profiles["float32"]["conv_ms"]
+    print(f"[roofline] {card}: float32 convolutions, roofline sum "
+          f"{sums['float32']:.3f} ms vs the step's {step_conv:.3f} ms "
+          f"(step_profile), ratio step/sum {step_conv / sums['float32']:.3f}"
+          f"; phase wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+    unchecked = set(variants) - checked
+    if unchecked:
+        fail(f"tools: launched kernel variants phase 2 did not check: "
+             f"{sorted(unchecked)}")
+    return variants
+
+
 # --only: the kernel family's module and phase
 ONLY = {"warp": ("warp_kernel", phase_kernel_a),
         "loss": ("loss_kernel", phase_kernel_d),
@@ -3075,6 +3328,8 @@ def main() -> None:
         pipe_variants = phase_pipeline(dev, workdir, card,
                                        results["checked"], fleet_a)
         torch.cuda.empty_cache()
+        tool_variants = phase_tools(dev, workdir, card, results["checked"])
+        torch.cuda.empty_cache()
     if not (bf16_variants.get(("warp_fwd", 3))
             and var_variants.get(("warp_fwd", 3))):
         fail(f"the bf16 or variant path did not launch the warp at 3 "
@@ -3088,7 +3343,8 @@ def main() -> None:
              f"{midas_variants}")
     unchecked = (set(midas_variants) | set(hourglass_variants)
                  | set(pre_variants) | set(bf16_variants)
-                 | set(var_variants) | set(pipe_variants)) \
+                 | set(var_variants) | set(pipe_variants)
+                 | set(tool_variants)) \
         - results.pop("checked")
     if unchecked:
         fail(f"a path launched kernel variants that phase 2 did not check: "

@@ -235,3 +235,31 @@ def make_raw_davis(n_frames: int = 8, h: int = 448, w: int = 768,
     u, v = rng.rand(n_points) * w, rng.rand(n_points) * h
     points = np.stack([(u - w / 2) / f * d, -(v - h / 2) / f * d, -d], -1)
     return imgs, np.stack(matrices), K, points, masks
+
+
+def write_raw_davis(root: str, track: str, n_frames: int = 4, h: int = 64,
+                    w: int = 96, seed: int = 1) -> None:
+    """``make_raw_davis`` written in the raw layout that ``preprocess/
+    run_davis.py::load_davis_track`` reads: JPEG frames, PNG masks and the
+    triangulation text files under ``root``."""
+    from PIL import Image
+
+    imgs, matrices, K, points, masks = make_raw_davis(n_frames, h, w,
+                                                      seed=seed)
+    fdir = join(root, "JPEGImages", "1080p", track)
+    mdir = join(root, "Annotations", "1080p", track)
+    tri = join(root, "triangulation")
+    for d in (fdir, mdir, tri):
+        os.makedirs(d, exist_ok=True)
+    for i, (img, m) in enumerate(zip(imgs, masks)):
+        Image.fromarray((img * 255).astype(np.uint8)).save(
+            join(fdir, f"{i:05d}.jpg"))
+        Image.fromarray((m * 255).astype(np.uint8)).save(
+            join(mdir, f"{i:05d}.png"))
+    idx = np.arange(n_frames)[:, None]
+    np.savetxt(join(tri, f"{track}.intrinsics.txt"), np.hstack(
+        [idx, np.tile([K[0, 0], K[1, 1], K[0, 2], K[1, 2]], (n_frames, 1))]))
+    np.savetxt(join(tri, f"{track}.matrices.txt"),
+               np.hstack([idx, matrices.reshape(n_frames, 16)]))
+    with open(join(tri, f"{track}.obj"), "w") as f:
+        f.writelines(f"v {x} {y} {z}\n" for x, y, z in points)

@@ -281,6 +281,17 @@ def process_davis_track(
     return s
 
 
+def midas_input_size(h: int, w: int, multiple: int = 32):
+    """The size MiDaS runs an ``h x w`` frame at: its encoder halves the
+    frame five times, so sides that are not multiples of 32 go through it
+    resized up to the next multiples (``make_midas_depth_fn``'s
+    ``resize``: bicubic there, the depth resized back); ``None`` when both
+    already are. Both stage-1 entries (DAVIS, ShutterStock) take it."""
+    if h % multiple == 0 and w % multiple == 0:
+        return None
+    return (-(-h // multiple) * multiple, -(-w // multiple) * multiple)
+
+
 def make_midas_depth_fn(resize: Optional[tuple] = None, device="cuda",
                         n_chips: int = 1) -> Callable:
     """A batched depth predictor ``[B, H, W, 3] in [0, 1] -> [B, H, W]``

@@ -11,8 +11,12 @@ Reads the raw inputs:
   <raw_root>/triangulation/<track>.obj             (triangulated points)
 and writes <out_root>/{frames_midas,flow_pairs,sequences_select_pairs_midas}/
 <track>/... in the reference layout. MiDaS (stage 1) and RAFT (stage 2) run
-on ``--device``; each loads its pretrained torch checkpoint when the file
-exists and otherwise runs random weights from seed 0. ``--n_chips N``
+on ``--device``; MiDaS takes frames whose sides are not multiples of 32
+(DAVIS's raw 1080x1920) at the next multiples (``frames.midas_input_size``:
+1088x1920) and resizes the depth back, where the JAX entry runs the raw
+frames and fails in the decoder's skip connections (136 against 135
+rows). Each of the two nets loads its pretrained torch checkpoint when
+the file exists and otherwise runs random weights from seed 0. ``--n_chips N``
 (above 1) splits stage 1's batches of ``max(N, 4)`` frames and stage 2's
 batches of N pairs over ``cuda:0 .. N-1`` (JAX scripts/preprocess/
 run_davis.py:62-94); the files are those of a serial run.
@@ -89,8 +93,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if args.stage in ("all", "frames"):
         imgs, matrices, K, points_3d, masks = load_davis_track(
             args.raw_root, args.track)
-        depth_fn = frames.make_midas_depth_fn(device=args.device,
-                                              n_chips=n_chips)
+        depth_fn = frames.make_midas_depth_fn(
+            resize=frames.midas_input_size(*imgs[0].shape[:2]),
+            device=args.device, n_chips=n_chips)
         s = frames.process_davis_track(imgs, matrices, K, points_3d, masks,
                                        frame_dir, depth_fn, max_width=384,
                                        multiple_of=64,

@@ -12,9 +12,9 @@ intrinsics recentred, and unlike DAVIS the scaled MVS depth kept as
 ``depth_mvs``. The working resolution has its longest side at most 384
 and both sides multiples of 32 (``get_im_size``); MiDaS takes frames
 whose sides are not multiples of 32 at the next multiples
-(``midas_input_size``; the JAX entry runs it on the frames as they are,
-which such frames fail). Stages 2-3 are the
-DAVIS entry's: RAFT flows and masks, then the packed pairs. ``--n_chips
+(``frames.midas_input_size``; the JAX entry runs it on the frames as
+they are, which such frames fail). Stages 2-3 are the DAVIS entry's:
+RAFT flows and masks, then the packed pairs. ``--n_chips
 N`` (above 1) splits stage 1's batches of ``max(N, 4)`` frames and stage
 2's batches of N pairs over ``cuda:0 .. N-1``.
 
@@ -36,6 +36,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 
 from . import flows, frames, pairs
+from .frames import midas_input_size
 
 
 def get_im_size(h: int, w: int, dim_max: int = 384, multiple: int = 32):
@@ -56,17 +57,6 @@ def get_im_size(h: int, w: int, dim_max: int = 384, multiple: int = 32):
             sc = th / h
         tw = int(np.round((w * sc) / multiple) * multiple)
     return th, tw
-
-
-def midas_input_size(h: int, w: int, multiple: int = 32):
-    """The size MiDaS runs an ``h x w`` frame at: its encoder halves the
-    frame five times, so sides that are not multiples of 32 go through it
-    resized up to the next multiples (``make_midas_depth_fn``'s
-    ``resize``: bicubic there, the depth resized back); ``None`` when both
-    already are."""
-    if h % multiple == 0 and w % multiple == 0:
-        return None
-    return (-(-h // multiple) * multiple, -(-w // multiple) * multiple)
 
 
 def load_shutterstock_h5(files: Sequence[str]):

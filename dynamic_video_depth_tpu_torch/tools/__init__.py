@@ -1,0 +1,15 @@
+"""Tools around the port's nets and train step, the counterparts of the
+JAX package's ``scripts/``:
+
+- ``golden_depth``: the pretrained MiDaS / hourglass golden check
+  (``scripts/depth_golden_check.py``);
+- ``golden_raft``: the pretrained RAFT golden check
+  (``scripts/raft_golden_check.py``);
+- ``step_profile``: a trace of the canonical train step split by device
+  time (``scripts/step_profile.py``);
+- ``roofline``: every convolution shape of the MiDaS step timed against the
+  card's peak (``scripts/roofline.py``).
+
+Each is run as ``python -m dynamic_video_depth_tpu_torch.tools.<name>``.
+Importing them builds and touches nothing; the timing paths need a card.
+"""

@@ -414,12 +414,13 @@ def test_preprocessing_n_chips_matches_serial(tmp_path, monkeypatch):
     """Stages 1-3 on three raw frames at 64x96 (RAFT at 64x96, 2
     iterations), serial and at ``--n_chips 2``: stage 1's batch of three
     pads to four, stage 2's last batch of one pair to two."""
-    from test_torch_preprocess import _write_raw_davis, small_raft
+    from test_torch_preprocess import small_raft
 
+    from dynamic_video_depth_tpu_torch.data.synthetic import write_raw_davis
     from dynamic_video_depth_tpu_torch.preprocess import run_davis
 
     raw = str(tmp_path / "raw")
-    _write_raw_davis(raw, "dog", n=3)
+    write_raw_davis(raw, "dog", n_frames=3)
     small_raft(monkeypatch)
     outs = {}
     for n in ("0", "2"):

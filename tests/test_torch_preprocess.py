@@ -19,7 +19,8 @@ from dynamic_video_depth_tpu.preprocess import flows as jax_flows
 from dynamic_video_depth_tpu.preprocess import frames as jax_frames
 from dynamic_video_depth_tpu.preprocess import pairs as jax_pairs
 from dynamic_video_depth_tpu_torch.data.synthetic import (make_raw_davis,
-                                                          make_track)
+                                                          make_track,
+                                                          write_raw_davis)
 from dynamic_video_depth_tpu_torch.ops import resize
 from dynamic_video_depth_tpu_torch.preprocess import flows, frames, pairs
 
@@ -308,31 +309,6 @@ def test_full_pipeline_to_train_step(tmp_path, rng, monkeypatch):
     assert np.isfinite(float(vlogs["loss"]))
 
 
-def _write_raw_davis(root, track, n=4, h=64, w=96):
-    """The raw layout ``run_davis.load_davis_track`` reads: JPEG frames, PNG
-    masks and the triangulation text files."""
-    from PIL import Image
-
-    imgs, matrices, K, points, masks = make_raw_davis(n, h, w, seed=1)
-    fdir = join(root, "JPEGImages", "1080p", track)
-    mdir = join(root, "Annotations", "1080p", track)
-    tri = join(root, "triangulation")
-    for d in (fdir, mdir, tri):
-        os.makedirs(d, exist_ok=True)
-    for i, (img, m) in enumerate(zip(imgs, masks)):
-        Image.fromarray((img * 255).astype(np.uint8)).save(
-            join(fdir, f"{i:05d}.jpg"))
-        Image.fromarray((m * 255).astype(np.uint8)).save(
-            join(mdir, f"{i:05d}.png"))
-    idx = np.arange(n)[:, None]
-    np.savetxt(join(tri, f"{track}.intrinsics.txt"), np.hstack(
-        [idx, np.tile([K[0, 0], K[1, 1], K[0, 2], K[1, 2]], (n, 1))]))
-    np.savetxt(join(tri, f"{track}.matrices.txt"),
-               np.hstack([idx, matrices.reshape(n, 16)]))
-    with open(join(tri, f"{track}.obj"), "w") as f:
-        f.writelines(f"v {x} {y} {z}\n" for x, y, z in points)
-
-
 def test_entry_runs_on_a_tiny_raw_track(tmp_path, monkeypatch, capsys):
     """``python -m dynamic_video_depth_tpu_torch.preprocess`` on the CPU:
     MiDaS and RAFT with random weights (RAFT at 64x96, 2 iterations), all
@@ -341,7 +317,7 @@ def test_entry_runs_on_a_tiny_raw_track(tmp_path, monkeypatch, capsys):
     from dynamic_video_depth_tpu_torch.preprocess import run_davis
 
     raw, out = str(tmp_path / "raw"), str(tmp_path / "out")
-    _write_raw_davis(raw, "dog")
+    write_raw_davis(raw, "dog")
     small_raft(monkeypatch)
     run_davis.main(["--raw_root", raw, "--track", "dog", "--out_root", out,
                     "--gaps", "1,2", "--raft_ckpt", str(tmp_path / "none"),
@@ -358,6 +334,55 @@ def test_entry_runs_on_a_tiny_raw_track(tmp_path, monkeypatch, capsys):
     assert len(ds) == 2 + 1
     for i in range(len(ds)):
         assert ds[i]["flow_1_2"].shape == (1, 64, 96, 2)
+
+
+def _stage1(raw, out, track="dog"):
+    from dynamic_video_depth_tpu_torch.preprocess import run_davis
+
+    run_davis.main(["--raw_root", raw, "--track", track, "--out_root", out,
+                    "--stage", "frames", "--device", "cpu"])
+    fdir = join(out, "frames_midas", track)
+    return [_npz(join(fdir, f)) for f in sorted(os.listdir(fdir))]
+
+
+def test_stage1_entry_takes_raw_heights_that_are_no_multiple_of_32(
+        tmp_path):
+    """DAVIS's raw frames are 1080 rows high, which MiDaS's encoder halves
+    to 34 rows: the decoder's doubled 68 -> 136 rows then miss the 135-row
+    skip connection. The entry runs MiDaS at the next multiples of 32
+    (``frames.midas_input_size``) and resizes the depth back; shown here at
+    56 rows (run at 64), where an entry without the resize raises the same
+    skip-connection error (8 against 7 rows)."""
+    raw = str(tmp_path / "raw")
+    write_raw_davis(raw, "dog", h=56, w=96)
+    assert frames.midas_input_size(56, 96) == (64, 96)
+    got = _stage1(raw, str(tmp_path / "out"))
+    assert len(got) == 4
+    for f in got:
+        assert f["img_orig"].shape == (56, 96, 3)
+        assert f["img"].shape == (64, 96, 3)  # the working size
+        assert f["depth_pred"].shape == (64, 96)
+        assert np.isfinite(f["depth_pred"]).all()
+
+
+def test_stage1_entry_at_multiples_of_32_runs_midas_unresized(tmp_path):
+    """Where both raw sides are multiples of 32, ``resize`` is ``None``: the
+    entry's depth is bit for bit that of MiDaS on the raw frames, as
+    before the repair."""
+    from dynamic_video_depth_tpu_torch.preprocess import run_davis
+
+    raw = str(tmp_path / "raw")
+    write_raw_davis(raw, "dog", h=64, w=96)
+    assert frames.midas_input_size(64, 96) is None
+    got = _stage1(raw, str(tmp_path / "out"))
+    imgs, matrices, K, points, masks = run_davis.load_davis_track(raw, "dog")
+    ref_dir = str(tmp_path / "ref")
+    frames.process_davis_track(imgs, matrices, K, points, masks, ref_dir,
+                               frames.make_midas_depth_fn(device="cpu"),
+                               max_width=384, multiple_of=64, depth_batch=4)
+    for i, f in enumerate(got):
+        ref = _npz(join(ref_dir, "frame_%05d.npz" % i))
+        assert np.array_equal(f["depth_pred"], ref["depth_pred"])
 
 
 def test_load_midas_checkpoint_by_port_keys(tmp_path):
