@@ -43,8 +43,9 @@ prints no result; ``--warp_only`` is ``--only warp``.
    within ``TOL`` of kernel B's plain version, and that the test entry
    launched kernel B's forward once a frame; that ``--resume -1 --epoch 3``
    restores ``checkpoint.pt`` bit for bit and trains epoch 3. Its
-   ``[recipe]`` line gives the test entry's time a frame, the seconds a
-   checkpoint save, the checkpoint sizes, the visualization seconds and
+   ``[recipe]`` line gives the test entry's time a frame, the background
+   writer's seconds a checkpoint (phase 13 has the loop's blocking time),
+   the checkpoint sizes, the visualization seconds and
    the share of each epoch's wall time outside the train steps.
 4. Drives the hourglass slice through the same entry with the fused paths
    off (``--use_pallas_sf_chain off --use_pallas_loss off``): kernels A and
@@ -165,11 +166,43 @@ prints no result; ``--warp_only`` is ``--only warp``.
    reading, not a gate). Its lines are ``[golden]``, ``[davis1080]``,
    ``[profile]`` and ``[roofline]``, with the phase's wall time.
 
+13. The background checkpoint writer, the MidasNet_mod mask head and the
+   reference's unfused geometry: (a) phase 3's recipe again through
+   ``cli.build_run`` (MiDaS at full width, the fixture's biased output
+   conv, a warm-up and a main epoch of every pair once, ``--save_every 1
+   --save_net 1``), its saves through ``runtime/checkpoint.py::
+   AsyncSaver``, then the chained test entry: ``checkpoint.pt``,
+   ``nets/0002.pt`` (and ``best.pt`` when epoch 2 wrote it) load to what a
+   synchronous ``save_checkpoint`` of the same state holds, bit for bit;
+   ``--resume -1`` from it and the unbroken run take the next step (a
+   gap-2 pair) from that shared state with bit-equal losses (the
+   parameters' largest difference after the update is printed: the warp
+   backward adds in atomic order); the ``[saver]`` line gives the loop's
+   blocking ms a save beside a synchronous save's, the writer's seconds
+   and bytes a file, a main step at gap 2 with a write of a fresh snapshot
+   in flight against without one (four steps a turn, in turns, after the
+   checks), the epochs' share of wall time outside the steps and the
+   run's peak device memory; then the same run with synchronous saves
+   (``save_checkpoint``, swapped in) and with the writer, in turns, with
+   each run's epoch walls, its whole ``train`` and its peak device memory
+   (``[saver turns]``); (b) ``MidasNet(mask_branch=True,
+   freeze_backbone=True)`` at 224x384 on the card and on the CPU in
+   float32 against the CPU in float64, forward and backward (the card's
+   error within ``MASK_FACTOR`` times the float32 CPU run's, for the
+   depth, the mask and the heads' gradients; no backbone gradient), and
+   the mask head's device time and that of its first 3x3 256->128
+   convolution at 112x192 at batch 2 (``[mask]``); (c)
+   ``flow_by_depth``, ``scene_flow_projection`` and ``rigidity_loss`` at
+   224x384 on the card against the CPU, values and the depths' gradients
+   (relative ``TOL['warp_bwd']``), the fused stages against the unfused
+   functions on the card (the same tolerance), and kernel A launched at
+   C=3 and C=4 by them, forward and backward (``[geometry]``).
+
 The trainer reads each step's losses up to 16 steps late, so a ``[slice]`` or ``[variants]`` median step is the step's span on
 the device clock (an event before its first launch to one after its last),
 not a host wall that ends in a synchronisation.
 
-Phases 8, 9, 10, 11 and 12 run after phase 5, in that order; phase 3's trained
+Phases 8, 9, 10, 11, 12 and 13 run after phase 5, in that order; phase 3's trained
 run is kept for phase 8's float32 yardstick, and each run's files are
 removed once checked.
 
@@ -204,6 +237,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import gc
 import json
 import math
 import os
@@ -1514,7 +1548,7 @@ def phase_recipe(dev, workdir: str, card: str):
              f"{n_pairs} finite main-phase steps")
 
     by_file = collections.defaultdict(list)  # (seconds, bytes) by file
-    for path, sec, n in run.saves:
+    for path, sec, n, *_ in run.saves:
         name = "nets/%04d.pt" if "/nets/" in path else os.path.basename(path)
         by_file[name].append((sec, n))
     saves = "; ".join(
@@ -3263,6 +3297,405 @@ def phase_tools(dev, workdir: str, card: str, checked: set) -> dict:
              f"{sorted(unchecked)}")
     return variants
 
+# the card's error against a float64 CPU run, at most this many times the
+# float32 CPU run's (float32 rounding; a wrong op or layout is off by ~1)
+MASK_FACTOR = 10
+SAVER_SPAN_STEPS = 4  # steps a turn, without and with a write in flight
+
+
+def phase_reference(dev, workdir: str, card: str) -> dict:
+    """Phase 13: (a) the recipe's saves through ``AsyncSaver``, (b) the
+    MidasNet_mod mask head, (c) the reference's unfused geometry. Prints
+    ``[saver]``, ``[mask]`` and ``[geometry]``; returns the launch
+    variants of its paths."""
+    import torch
+
+    from dynamic_video_depth_tpu_torch.runtime.checkpoint import (
+        read_checkpoint, save_checkpoint)
+    from dynamic_video_depth_tpu_torch.train.cli import build_run
+
+    t_phase = time.perf_counter()
+    variants = collections.Counter()
+    # (a) the recipe's saves in the background
+    track, gaps = PIPE_TRACK, PIPE_GAPS
+    n_pairs = track_pairs(workdir, track)
+    common = ["--epoch_batches", str(n_pairs), "--vali_batches", "2",
+              "--batch_size", "1", "--device", str(dev)]
+    argv = recipe_flags(track) + common + [
+        "--epoch", "2", "--warm_sf", "1", "--save_every", "1",
+        "--save_net", "1", "--data_root", workdir, "--track_id", track,
+        "--gaps", ",".join(map(str, gaps)),
+        "--logdir", os.path.join(workdir, "saver"),
+        "--test_template", os.path.join(HERE, TEST_TEMPLATE),
+        "--manual_seed", "0"]
+    run = build_run(argv)
+    logdir, step = run.logdir, run.model.step
+    _, run_variants, walls = phase_trainer(dev, "saver", run.trainer, gaps,
+                                           MIDAS_KERNELS, midas=True)
+    variants.update(run_variants)
+    peak = torch.cuda.max_memory_allocated()
+    run.chain_test()
+    if not os.path.isfile(os.path.join(logdir, "test",
+                                       "epochbest_test.json")):
+        fail("saver: the chained test entry wrote no summary")
+    records = list(run.saves)
+    if run.saver.writing(logdir) or len(records) < 5:
+        fail(f"saver: {len(records)} writes landed, want checkpoint.pt, "
+             "nets/%04d.pt and best.pt of the first epoch and checkpoint.pt "
+             "and nets/0002.pt of the second at least")
+
+    # the last epoch's files against a synchronous save of the same state
+    sync_s, compared = [], []
+    for rec in records[-3:]:
+        saved = read_checkpoint(rec.path)
+        if saved["epoch"] != 2:
+            continue
+        ref = os.path.join(workdir, "sync_" + os.path.basename(rec.path))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(ref, step, epoch=saved["epoch"], best=saved["best"],
+                        include_opt="optimizers" in saved)
+        sync_s.append(time.perf_counter() - t0)
+        if not state_equal(saved, read_checkpoint(ref)):
+            fail(f"saver: {rec.path} differs from a synchronous save of "
+                 "the same state")
+        compared.append(os.path.relpath(rec.path, logdir))
+        os.remove(ref)
+    if "checkpoint.pt" not in compared or "nets/0002.pt" not in compared:
+        fail(f"saver: compared {compared}, want checkpoint.pt and "
+             "nets/0002.pt of epoch 2")
+
+    # the next step, resumed from checkpoint.pt and unbroken
+    resumed = build_run(["--full_logdir", logdir, "--resume", "-1",
+                         "--epoch", "3"] + common)
+    batch = gap_batch(run.trainer.dataset_train, 2, dev)
+    logs = [{k: float(v) for k, v in s.train_step(batch, 2, False).items()}
+            for s in (step, resumed.model.step)]
+    torch.cuda.synchronize()
+    if resumed.start_epoch != 3 or any(logs[0][k] != logs[1][k]
+                                       for k in LOSS_KEYS):
+        fail(f"saver: the resumed step's losses {logs[1]} differ from the "
+             f"unbroken run's {logs[0]}")
+    other = resumed.model.step
+    param_diff = max(
+        (a - b).abs().max().item()
+        for mine, theirs in ((step.net_depth, other.net_depth),
+                             (step.net_sf, other.net_sf))
+        for a, b in zip(mine.parameters(), theirs.parameters()))
+    del resumed, other
+
+    # a main step at gap 2 (host clock to its losses) without and with a
+    # write of a fresh snapshot in flight, in turns; a step that ends after
+    # the write landed is not counted as with one
+    spans = {"without": [], "with": []}
+    probe = os.path.join(workdir, "saver_probe.pt")
+    for turn in ("without", "with", "without", "with"):
+        if turn == "with":
+            run.saver.invalidate()  # a fresh snapshot to write
+            run.saver.save(probe, step)
+        for _ in range(SAVER_SPAN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step.train_step(batch, 2, False)
+            torch.cuda.synchronize()
+            if turn == "without" or run.saver.writing(probe):
+                spans[turn].append(1e3 * (time.perf_counter() - t0))
+        run.saver.flush()
+    run.saver.close()
+    os.remove(probe)
+    hist = run.trainer.history
+    outside = {e: 1 - sum(r["seconds"] for r in hist if r["epoch"] == e)
+               / walls[e] for e in walls}
+
+    def med(xs):
+        return f"{statistics.median(xs):.2f}" if xs else "none"
+
+    by_file = collections.defaultdict(list)
+    for rec in records:
+        name = ("nets/%04d.pt" if "/nets/" in rec.path
+                else os.path.basename(rec.path))
+        by_file[name].append(rec)
+    files = "; ".join(
+        f"{name} {len(v)} writes: blocking "
+        + "/".join(f"{1e3 * r.blocking:.2f}" for r in v) + " ms, writer "
+        + "/".join(f"{r.seconds:.3f}" for r in v) + f" s, {v[-1].bytes} bytes"
+        for name, v in sorted(by_file.items()))
+    print(f"[saver] {card}: MiDaS {H}x{W}, {n_pairs} steps an epoch, 2 "
+          f"epochs; {files}; a synchronous save_checkpoint of the same "
+          "state " + "/".join(f"{x:.3f}" for x in sync_s) + " s (blocking); "
+          f"{', '.join(compared)} equal to it bit for bit; main step at gap "
+          f"2 (host clock to its losses, in turns) with a write in flight "
+          f"{med(spans['with'])} ms (n {len(spans['with'])}: "
+          + "/".join(f"{x:.1f}" for x in spans["with"])
+          + f"), without {med(spans['without'])} ms (n "
+          f"{len(spans['without'])}: "
+          + "/".join(f"{x:.1f}" for x in spans["without"])
+          + "); share of epoch wall outside the train steps "
+          + ", ".join(f"{outside[e]:.3f} epoch {e} ({walls[e]:.2f} s)"
+                      for e in sorted(walls))
+          + f"; peak device memory {peak / 2**30:.2f} GiB; resumed next step "
+          f"losses bit-equal, parameters after it within {param_diff:.3e}",
+          flush=True)
+    shutil.rmtree(logdir)
+    del run, step, batch
+    gc.collect()  # a Run and its hooks hold each other
+    torch.cuda.empty_cache()
+    saver_turns(dev, workdir, card, argv)
+
+    phase_mask_head(dev, card)
+    variants.update(phase_geometry(dev, card))
+    print(f"[phase 13] {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return variants
+
+
+class SyncSaver:
+    """The train entry's saves made inline by ``save_checkpoint``, as before
+    the background writer; phase 13 swaps it into a ``Run`` to time the two
+    in turns. Each record's blocking time is its write's."""
+
+    def __init__(self):
+        self.records = []
+
+    def save(self, path, step, epoch=0, best=float("inf"), include_opt=True):
+        from dynamic_video_depth_tpu_torch.runtime.checkpoint import (
+            SaveRecord, save_checkpoint)
+        t0 = time.perf_counter()
+        save_checkpoint(path, step, epoch=epoch, best=best,
+                        include_opt=include_opt)
+        sec = time.perf_counter() - t0
+        self.records.append(SaveRecord(path, sec, os.path.getsize(path), sec))
+
+    def invalidate(self):
+        pass
+
+    def flush(self):
+        pass
+
+    close = flush
+
+
+def saver_turns(dev, workdir: str, card: str, argv: list) -> None:
+    """Phase 13 (a), the recipe's cost of saving: the same run (2 epochs,
+    a save of each kind every epoch) with synchronous saves and with the
+    background writer, in turns (sync, async, async, sync); each run's
+    epoch walls, its whole ``train`` (the last writes' wait included), the
+    writes' blocking seconds and its peak device memory (``[saver turns]``).
+    """
+    import torch
+
+    from dynamic_video_depth_tpu_torch.train.cli import build_run
+
+    logdir_at = argv.index("--logdir") + 1
+    out = {"sync": [], "async": []}
+    for i, kind in enumerate(("sync", "async", "async", "sync")):
+        turn = list(argv)
+        turn[logdir_at] = os.path.join(workdir, f"saver_turn{i}")
+        run = build_run(turn)
+        if kind == "sync":
+            run.saver = SyncSaver()
+            run.saves = run.saver.records
+        trainer, train = run.trainer, run.trainer.train
+        total = []
+
+        def timed(train=train, total=total):
+            t0 = time.perf_counter()
+            train()
+            torch.cuda.synchronize()
+            total.append(time.perf_counter() - t0)
+
+        trainer.train = timed
+        _, _, walls = phase_trainer(dev, f"saver turn {i} {kind}", trainer,
+                                    PIPE_GAPS, MIDAS_KERNELS, midas=True)
+        peak = torch.cuda.max_memory_allocated()
+        steps = {e: sum(r["seconds"] for r in trainer.history
+                        if r["epoch"] == e) for e in walls}
+        out[kind].append({
+            "walls": [walls[e] for e in sorted(walls)],
+            "steps": [steps[e] for e in sorted(walls)],
+            "train": total[0],
+            "blocking": sum(r.blocking for r in run.saves),
+            "n": len(run.saves), "peak": peak})
+        shutil.rmtree(run.logdir)
+        del run, trainer, train, timed
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def show(r):
+        return ("epochs " + "/".join(f"{w:.3f}" for w in r["walls"])
+                + " s (steps " + "/".join(f"{x:.3f}" for x in r["steps"])
+                + f" s), train {r['train']:.3f} s, {r['n']} saves blocking "
+                f"{r['blocking']:.3f} s, peak {r['peak'] / 2**30:.2f} GiB")
+
+    print(f"[saver turns] {card}: the recipe's run in turns, sync / async / "
+          f"async / sync: " + "; ".join(
+              f"{kind} {show(r)}" for kind, r in
+              (("sync", out["sync"][0]), ("async", out["async"][0]),
+               ("async", out["async"][1]), ("sync", out["sync"][1]))),
+          flush=True)
+
+
+def phase_mask_head(dev, card: str) -> None:
+    """Phase 13 (b): MidasNet_mod at 224x384 on the card and on the CPU in
+    float32 against the CPU in float64, forward and backward; the card's
+    error against float64 within ``MASK_FACTOR`` times the CPU float32
+    run's (each output, and the heads' gradients, worst over parameters);
+    and the mask head's device time at the step's batch of 2."""
+    import copy
+
+    import torch
+
+    from dynamic_video_depth_tpu_torch.models import MidasNet
+    from dynamic_video_depth_tpu_torch.runtime.weights import (
+        bias_midas_output)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(0)
+    cpu = bias_midas_output(MidasNet(mask_branch=True, freeze_backbone=True,
+                                     generator=gen))
+    net = MidasNet(mask_branch=True, freeze_backbone=True).to(dev)
+    net.load_state_dict(cpu.state_dict())
+    img = torch.rand(1, H, W, 3, generator=gen)
+    outs = []
+    for model, x in ((copy.deepcopy(cpu).double(), img.double()),
+                     (cpu, img), (net, img.to(dev))):
+        depth, mask = model(x)
+        (1e-3 * depth.sum() + mask.sum()).backward()
+        outs.append([depth.detach().cpu().double(),
+                     mask.detach().cpu().double()]
+                    + [None if p.grad is None else p.grad.cpu().double()
+                       for p in model.parameters()])
+    names = ["depth", "mask"] + [n for n, _ in net.named_parameters()]
+    ref, f32, card_out = outs
+    errs = {"cpu": {}, "card": {}}
+    for i, name in enumerate(names):
+        if name.startswith("pretrained."):
+            if f32[i] is not None or card_out[i] is not None:
+                fail(f"mask: the frozen backbone took a gradient ({name})")
+            continue
+        errs["cpu"][name] = rel_err(f32[i], ref[i])[1]
+        errs["card"][name] = rel_err(card_out[i], ref[i])[1]
+    worst = {}
+    for side, e in errs.items():
+        grads = {k: v for k, v in e.items() if k not in ("depth", "mask")}
+        worst[side] = (e["depth"], e["mask"], max(grads.values()),
+                       max(grads, key=grads.get))
+    over = [what for what, c, f in zip(("depth", "mask", "gradients"),
+                                       worst["card"], worst["cpu"])
+            if not c <= MASK_FACTOR * f]
+    if over:
+        fail(f"mask: the card against float64 {worst['card'][:3]}, more "
+             f"than {MASK_FACTOR}x the CPU float32 run's {worst['cpu'][:3]} "
+             f"({over})")
+    if not (0.0 < float(card_out[1].min()) and float(card_out[1].max()) < 1.0):
+        fail("mask: the mask is not inside (0, 1)")
+    gen = torch.Generator().manual_seed(1)
+
+    path1 = torch.randn(2, 256, H // 2, W // 2, generator=gen).to(dev)
+    scratch = net.scratch
+    with torch.no_grad():
+        head_ms = time_ms(lambda: scratch.output_conv_mask(path1), reps=5,
+                          warmup=1)
+        conv0_ms = time_ms(lambda: scratch.output_conv_mask[0](path1),
+                           reps=5, warmup=1)
+        depth_head_ms = time_ms(lambda: scratch.output_conv(path1), reps=5,
+                                warmup=1)
+    card_w, cpu_w = worst["card"], worst["cpu"]
+    print(f"[mask] {card}: MidasNet_mod {H}x{W}, against the CPU in "
+          f"float64: the card depth {card_w[0]:.3e}, mask {card_w[1]:.3e}, "
+          f"the heads' gradients {card_w[2]:.3e} ({card_w[3]}); the CPU in "
+          f"float32 {cpu_w[0]:.3e}, {cpu_w[1]:.3e}, {cpu_w[2]:.3e} "
+          f"({cpu_w[3]}); backbone frozen (no gradient); mask head "
+          f"forward {head_ms:.2f} ms on path1 [2,256,{H // 2},{W // 2}], "
+          f"its output_conv_mask[0] (3x3 256->128) {conv0_ms:.2f} ms, the "
+          f"depth head {depth_head_ms:.2f} ms (float32, TF32 off)",
+          flush=True)
+    del net, cpu, outs, ref, f32, card_out
+    torch.cuda.empty_cache()
+
+
+def phase_geometry(dev, card: str) -> dict:
+    """Phase 13 (c): the reference's unfused geometry at 224x384 on the
+    card against the CPU, the fused stages against it on the card; returns
+    kernel A's launch variants by the unfused functions (counts set to 0
+    just before)."""
+    import torch
+
+    from dynamic_video_depth_tpu_torch.ops import cuda as kernels_mod
+    from dynamic_video_depth_tpu_torch.ops import geometry
+    from dynamic_video_depth_tpu_torch.ops.camera import Camera
+
+    tol = TOL["warp_bwd"]
+    gen = torch.Generator().manual_seed(2)
+    f = 0.8 * W
+    K = torch.tensor([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1.0]])[None]
+
+    def rotation(angle=0.1):
+        k = torch.randn(3, generator=gen)
+        k = k / k.norm() * angle
+        kx = torch.tensor([[0, -k[2], k[1]], [k[2], 0, -k[0]],
+                           [-k[1], k[0], 0]])
+        return torch.linalg.matrix_exp(kx)[None]
+
+    cams = [(rotation(), 0.05 * torch.randn(1, 3, generator=gen), K,
+             torch.linalg.inv(K)) for _ in range(2)]
+    d1 = 2.0 + 3.0 * torch.rand(1, H, W, generator=gen)
+    d2 = 2.0 + 3.0 * torch.rand(1, H, W, generator=gen)
+    flow = track_flows(H, W, 2)
+    sf = 0.05 * torch.randn(1, H, W, 3, generator=gen)
+    results, variants = [], {}
+    for device in (torch.device("cpu"), dev):
+        card_run = device.type == "cuda"
+        c1, c2 = (Camera(*(t.to(device) for t in c)) for c in cams)
+        x1, x2 = (d.to(device, copy=True).requires_grad_() for d in (d1, d2))
+        fl, s = flow.to(device), sf.to(device)
+        if card_run:
+            torch.cuda.synchronize()
+            kernels_mod.reset_launches()
+        fbd = geometry.flow_by_depth(x1, x2, fl, c1, c2)
+        pr = geometry.scene_flow_projection(x1, x2, fl, c1, c2, s)
+        (fbd["sf_by_depth"].abs().sum() + pr["dflow_1_2"].abs().sum()
+         + pr["depth_warp_1_2"].abs().sum()).backward()
+        if card_run:
+            torch.cuda.synchronize()
+            variants = kernels_mod.launch_variants()
+        rig, _ = geometry.rigidity_loss(fbd["global_p1"].detach(), s,
+                                        x1.detach())
+        stage = geometry.depth_warp_stage(x1.detach(), x2.detach(), fl, c1,
+                                          c2)
+        fused = dict(geometry.projection_stage(x1.detach(), x2.detach(), c2,
+                                               s, stage),
+                     sf_by_depth=stage["sf_by_depth"])
+        results.append((fbd, pr, (x1.grad, x2.grad), rig, fused))
+    want = {("warp_fwd", 3): 1, ("warp_bwd", 3): 1, ("warp_fwd", 4): 1,
+            ("warp_bwd", 4): 1}
+    if dict(variants) != want:
+        fail(f"geometry: kernel A launched {dict(variants)}, want {want}")
+    (f0, p0, g0, r0, _), (f1, p1, g1, r1, fused) = results
+    worst = {}
+    for name, a, b in ([(f"flow_by_depth.{k}", f1[k], f0[k]) for k in f0]
+                       + [(f"scene_flow_projection.{k}", p1[k], p0[k])
+                          for k in p0]
+                       + [("grad depth_1", g1[0], g0[0]),
+                          ("grad depth_2", g1[1], g0[1]),
+                          ("rigidity_loss", r1, r0)]):
+        worst[name] = rel_err(a.detach().cpu(), b.detach())[1]
+    identity = {k: rel_err(fused[k], (f1 if k == "sf_by_depth" else p1)[k]
+                           .detach())[1] for k in fused}
+    bad = {k: v for k, v in list(worst.items()) + [
+        ("fused." + k, v) for k, v in identity.items()] if not v <= tol}
+    if bad:
+        fail(f"geometry: above {tol}: {bad}")
+    top = max(worst, key=worst.get)
+    print(f"[geometry] {card}: flow_by_depth, scene_flow_projection and "
+          f"rigidity_loss at {H}x{W} on the card vs the CPU: worst "
+          f"{worst[top]:.3e} ({top}), gradients {worst['grad depth_1']:.3e} /"
+          f" {worst['grad depth_2']:.3e}; fused stages vs the unfused "
+          f"functions on the card: worst {max(identity.values()):.3e} "
+          f"(tol {tol}); kernel A launches {dict(variants)}", flush=True)
+    return variants
+
+
 
 # --only: the kernel family's module and phase
 ONLY = {"warp": ("warp_kernel", phase_kernel_a),
@@ -3330,6 +3763,8 @@ def main() -> None:
         torch.cuda.empty_cache()
         tool_variants = phase_tools(dev, workdir, card, results["checked"])
         torch.cuda.empty_cache()
+        ref_variants = phase_reference(dev, workdir, card)
+        torch.cuda.empty_cache()
     if not (bf16_variants.get(("warp_fwd", 3))
             and var_variants.get(("warp_fwd", 3))):
         fail(f"the bf16 or variant path did not launch the warp at 3 "
@@ -3344,7 +3779,7 @@ def main() -> None:
     unchecked = (set(midas_variants) | set(hourglass_variants)
                  | set(pre_variants) | set(bf16_variants)
                  | set(var_variants) | set(pipe_variants)
-                 | set(tool_variants)) \
+                 | set(tool_variants) | set(ref_variants)) \
         - results.pop("checked")
     if unchecked:
         fail(f"a path launched kernel variants that phase 2 did not check: "

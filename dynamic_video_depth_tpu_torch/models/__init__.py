@@ -1,7 +1,10 @@
 """Depth nets, the scene-flow field and its CNN alternative, and the
-library blocks and MLPs (the JAX package's ``models`` exports)."""
+library blocks and MLPs (the JAX package's ``models`` exports), and the
+``--net`` registry."""
 
-from .blocks import ConvBlock, DoubleConvBlock, PeriodicEmbed
+import importlib
+
+from .blocks import ConvBlock, DoubleConvBlock, PeriodicEmbed, ResConv2DBlock
 from .fcn_unet import FCNUnet
 from .hourglass import HourglassModel, HourglassModelEmbed
 from .midas import MidasNet
@@ -9,6 +12,17 @@ from .mlp import MLP, EmbeddedMLP
 from .sceneflow_field import SceneFlowFieldNet
 from .tiny import TinyDepthNet
 
+
+def get_model(alias: str):
+    """``--net`` alias -> the trainer's ``Model`` class,
+    ``dynamic_video_depth_tpu_torch.train.<alias>.Model`` (reference
+    models/__init__.py:18-20)."""
+    module = importlib.import_module(
+        "dynamic_video_depth_tpu_torch.train." + alias)
+    return module.Model
+
+
 __all__ = ["ConvBlock", "DoubleConvBlock", "EmbeddedMLP", "FCNUnet",
            "HourglassModel", "HourglassModelEmbed", "MLP", "MidasNet",
-           "PeriodicEmbed", "SceneFlowFieldNet", "TinyDepthNet"]
+           "PeriodicEmbed", "ResConv2DBlock", "SceneFlowFieldNet",
+           "TinyDepthNet", "get_model"]

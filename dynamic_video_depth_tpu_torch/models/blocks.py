@@ -5,8 +5,8 @@ Every initializer takes an explicit ``torch.Generator``, so a run's random
 weights follow from its seed alone. The leaky-relu 0.2 of the scene-flow
 field lives with its one user, ``ops/cuda/mlp_kernel.py``.
 
-``ConvBlock`` and ``DoubleConvBlock`` run on NCHW tensors (the nets'
-layout; the JAX modules are channel-last). Their keys follow the JAX
+``ConvBlock``, ``DoubleConvBlock`` and ``ResConv2DBlock`` run on NCHW
+tensors (the nets' layout; the JAX modules are channel-last). Their keys follow the JAX
 package's flax paths with ``__`` read as ``.`` (``model.0.conv.weight``,
 ``norm.running_mean``, ``act.weight``; a weight-normed conv's scale is
 ``wn.weight``), so ``runtime/weights.py`` carries the JAX parameters over.
@@ -249,3 +249,29 @@ class DoubleConvBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.model[1](self.model[0](x))
+
+
+class ResConv2DBlock(nn.Module):
+    """``DoubleConvBlock``'s two ``ConvBlock``s plus a skip: the input
+    itself, or a learned 1x1 ``ConvBlock`` (padding 0) when the widths
+    differ (reference ResConv2DBlock, networks/blocks.py:102-123, which
+    never ran: the JAX package's working form, keys ``model.{0,1}`` and
+    ``skip``)."""
+
+    def __init__(self, in_channels: int, features: int,
+                 kernel_size: int = 3,
+                 generator: Optional[torch.Generator] = None, **kw):
+        super().__init__()
+        self.skip = None
+        if in_channels != features:
+            self.skip = ConvBlock(in_channels, features, 1,
+                                  generator=generator, **dict(kw, padding=0))
+        self.model = nn.ModuleList([
+            ConvBlock(in_channels, features, kernel_size,
+                      generator=generator, **kw),
+            ConvBlock(features, features, kernel_size, generator=generator,
+                      **kw)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        res = x if self.skip is None else self.skip(x)
+        return self.model[1](self.model[0](x)) + res

@@ -16,9 +16,14 @@ Keys follow the torch checkpoint (``pretrained.layer1.0`` is the stem conv,
 ``pretrained.layer1.4.<i>`` the stage-1 blocks, ``scratch.refinenet4.
 resConfUnit2.conv1``, ``scratch.output_conv.4``), the JAX package's flax
 paths with ``__`` read as ``.``. As in the JAX package, a fusion block with
-one input (``refinenet4``) has no ``resConfUnit1``. The MidasNet_mod mask
-head and backbone freeze of the JAX module are not ported: the train step
-does not use them.
+one input (``refinenet4``) has no ``resConfUnit1``.
+
+``mask_branch`` and ``freeze_backbone`` give the reference's MidasNet_mod
+(third_party/MiDaS.py:44-161), as the JAX module does: a sigmoid mask head
+``scratch.output_conv_mask.{0,2,4}`` on the decoder's last path (the net
+then returns ``(depth, mask)``), and a backbone whose outputs carry no
+gradient (the backbone runs under ``torch.no_grad``, the counterpart of
+``stop_gradient``: its parameters get none). The train step uses neither.
 """
 
 from __future__ import annotations
@@ -136,8 +141,18 @@ class _Upsample2x(nn.Module):
         return upsample2x_nchw(x, align_corners=False)
 
 
+def _output_head(features: int, last: nn.Module) -> nn.Sequential:
+    """3x3 -> 128, bilinear 2x, 3x3 -> 32, ReLU, 1x1 -> 1, ``last``: the
+    depth head (``output_conv``) and the mask head (``output_conv_mask``)."""
+    return nn.Sequential(
+        nn.Conv2d(features, 128, 3, padding=1), _Upsample2x(),
+        nn.Conv2d(128, 32, 3, padding=1), nn.ReLU(),
+        nn.Conv2d(32, 1, 1), last)
+
+
 class _Scratch(nn.Module):
-    def __init__(self, features: int, non_negative: bool):
+    def __init__(self, features: int, non_negative: bool,
+                 mask_branch: bool):
         super().__init__()
         f = features
         for i, c in enumerate((256, 512, 1024, 2048), 1):
@@ -147,27 +162,31 @@ class _Scratch(nn.Module):
         self.refinenet3 = FeatureFusionBlock(f, two_inputs=True)
         self.refinenet2 = FeatureFusionBlock(f, two_inputs=True)
         self.refinenet1 = FeatureFusionBlock(f, two_inputs=True)
-        self.output_conv = nn.Sequential(
-            nn.Conv2d(f, 128, 3, padding=1), _Upsample2x(),
-            nn.Conv2d(128, 32, 3, padding=1), nn.ReLU(),
-            nn.Conv2d(32, 1, 1), nn.ReLU() if non_negative else nn.Identity())
+        self.output_conv = _output_head(
+            f, nn.ReLU() if non_negative else nn.Identity())
+        if mask_branch:
+            self.output_conv_mask = _output_head(f, nn.Sigmoid())
 
 
 class MidasNet(nn.Module):
     """MiDaS v2.1-style depth net (reference third_party/MiDaS.py:164-246).
     ``normalize_input`` applies the ImageNet normalization the train step
     uses; ``resize`` runs the net at that size (bicubic, align_corners) and
-    resizes the depth back."""
+    resizes the depth back (and the mask). ``mask_branch`` and
+    ``freeze_backbone``: MidasNet_mod (the module docstring)."""
 
     def __init__(self, features: int = 256, non_negative: bool = True,
                  normalize_input: bool = True,
                  resize: Optional[Tuple[int, int]] = None,
+                 mask_branch: bool = False, freeze_backbone: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.normalize_input = normalize_input
         self.resize = resize
+        self.mask_branch = mask_branch
+        self.freeze_backbone = freeze_backbone
         self.pretrained = ResNeXt101Backbone()
-        self.scratch = _Scratch(features, non_negative)
+        self.scratch = _Scratch(features, non_negative, mask_branch)
         self.register_buffer("mean", torch.tensor(_IMAGENET_MEAN),
                              persistent=False)
         self.register_buffer("std", torch.tensor(_IMAGENET_STD),
@@ -175,7 +194,7 @@ class MidasNet(nn.Module):
         init_module(self, lecun_normal(), generator)
         self.eval()
 
-    def forward(self, img: torch.Tensor) -> torch.Tensor:
+    def forward(self, img: torch.Tensor):
         if self.training:
             raise RuntimeError("the depth net runs in eval mode only: its "
                                "batch norms use frozen statistics")
@@ -185,14 +204,22 @@ class MidasNet(nn.Module):
         orig_hw = x.shape[1:3]
         if self.resize is not None:
             x = resize_bicubic(x, self.resize, align_corners=True)
-        l1, l2, l3, l4 = self.pretrained(x.permute(0, 3, 1, 2))
+        with torch.set_grad_enabled(torch.is_grad_enabled()
+                                    and not self.freeze_backbone):
+            l1, l2, l3, l4 = self.pretrained(x.permute(0, 3, 1, 2))
         s = self.scratch
         path4 = s.refinenet4(s.layer4_rn(l4))
         path3 = s.refinenet3(path4, s.layer3_rn(l3))
         path2 = s.refinenet2(path3, s.layer2_rn(l2))
         path1 = s.refinenet1(path2, s.layer1_rn(l1))
         out = 10000.0 / torch.clamp(s.output_conv(path1), min=1e-2)
-        out = out.permute(0, 2, 3, 1)
+        outs = [out]
+        if self.mask_branch:
+            outs.append(s.output_conv_mask(path1))
+        outs = [o.permute(0, 2, 3, 1) for o in outs]
         if self.resize is not None:
-            out = resize_bicubic(out, orig_hw, align_corners=True)
-        return out[..., 0]
+            outs = [resize_bicubic(o, orig_hw, align_corners=True)
+                    for o in outs]
+        if self.mask_branch:
+            return outs[0][..., 0], outs[1][..., 0]
+        return outs[0][..., 0]

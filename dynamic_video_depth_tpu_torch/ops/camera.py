@@ -1,5 +1,5 @@
-"""Camera tuple and conversion from the reference's packed pose format
-(counterpart of ``dynamic_video_depth_tpu/ops/camera.py``).
+"""Camera tuple and conversion from and to the reference's packed pose
+format (counterpart of ``dynamic_video_depth_tpu/ops/camera.py``).
 
 The packed datafiles store row-vector matrices (``R = R_c2w.T``,
 ``K = K.T``, ``K_inv = inv(K).T``); internally cameras are plain
@@ -21,6 +21,19 @@ class Camera(NamedTuple):
     t: torch.Tensor      # [B, 3]
     K: torch.Tensor      # [B, 3, 3]
     K_inv: torch.Tensor  # [B, 3, 3]
+
+
+def packed_from_camera(cam: Camera):
+    """Inverse of ``camera_from_packed``, for writing reference-format
+    files: ``(R, R_T, t, K, K_inv)``, the matrices ``[B,1,1,3,3]``
+    (``R_T`` is ``R_c2w`` itself, the others transposed) and ``t``
+    ``[B,1,1,1,3]``."""
+    b = cam.R_c2w.shape[0]
+    return (cam.R_c2w.transpose(-1, -2).reshape(b, 1, 1, 3, 3),
+            cam.R_c2w.reshape(b, 1, 1, 3, 3),
+            cam.t.reshape(b, 1, 1, 1, 3),
+            cam.K.transpose(-1, -2).reshape(b, 1, 1, 3, 3),
+            cam.K_inv.transpose(-1, -2).reshape(b, 1, 1, 3, 3))
 
 
 def _as_b33(m: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,21 @@
-"""Camera geometry for the train step (counterpart of
-``dynamic_video_depth_tpu/ops/geometry.py``).
+"""Camera geometry (counterpart of
+``dynamic_video_depth_tpu/ops/geometry.py``; reference
+losses/scene_flow_projection.py).
 
 Channel-last: depth ``[B,H,W]``, flow ``[B,H,W,2]``, points ``[B,H,W,3]``.
 Every 3x3 product is written as a broadcast multiply and a sum over the last
 axis, so it runs in plain float32 whatever the TF32 settings are (the
 counterpart of the JAX package's ``Precision.HIGHEST`` pin: reduced-precision
 geometry costs about a pixel).
+
+The train step runs the fused stages, ``depth_warp_stage`` and
+``projection_stage``. The reference's unfused loss modules are here too:
+``project_displacement``, ``flow_by_depth`` (a 3-channel warp of the
+frame-2 world points), ``scene_flow_projection`` (a 4-channel warp of
+``[p2_camera_2, depth_2]``; the reference's unused 2->1 projection is not
+computed, as in the JAX package) and ``rigidity_loss``. Every warp goes
+through kernel A's wrapper: its plain version on CPU tensors, the kernel on
+CUDA tensors.
 """
 
 from __future__ import annotations
@@ -13,6 +23,7 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
+import torch.nn.functional as F
 
 from .camera import Camera
 from .coords import pixel_coords, pixel_coords_homogeneous
@@ -66,6 +77,67 @@ def project(points: torch.Tensor, cam: Camera):
     return torch.where(z < _Z_DEGENERATE, base, pix), cam_pts
 
 
+def project_displacement(points: torch.Tensor, cam: Camera) -> torch.Tensor:
+    """World points -> each point's displacement from its own pixel
+    (reference ``project_ptcld``, losses/scene_flow_projection.py:21-44)."""
+    _, h, w, _ = points.shape
+    pix, _ = project(points, cam)
+    return pix - pixel_coords(h, w, points.dtype, points.device)[None]
+
+
+def flow_by_depth(depth_1, depth_2, flow_1_2, cam_1: Camera,
+                  cam_2: Camera) -> Dict[str, torch.Tensor]:
+    """The flow implied by ``depth_1`` and the egomotion, and the scene flow
+    implied by the observed flow (reference ``flow_by_depth``,
+    losses/scene_flow_projection.py:95-153): ``dflow_1_2``, ``sf_by_depth``,
+    ``warped_global_p2`` and ``global_p1``."""
+    global_p1 = unproject(depth_1, cam_1)
+    global_p2 = unproject(depth_2, cam_2)
+    warped_global_p2 = backward_warp(global_p2, flow_1_2)
+    return {
+        "dflow_1_2": project_displacement(global_p1, cam_2),
+        "sf_by_depth": warped_global_p2 - global_p1,
+        "warped_global_p2": warped_global_p2,
+        "global_p1": global_p1,
+    }
+
+
+def scene_flow_projection(depth_1, depth_2, flow_1_2, cam_1: Camera,
+                          cam_2: Camera,
+                          sflow_1_2) -> Dict[str, torch.Tensor]:
+    """Unproject, advect by the scene flow, reproject into camera 2
+    (reference ``scene_flow_projection_slack``,
+    losses/scene_flow_projection.py:204-278): the dict that
+    ``projection_stage`` completes, written out on its own. The observed
+    flow warps ``[p2_camera_2, depth_2]`` in one 4-channel warp."""
+    _, h, w = depth_1.shape
+    base = pixel_coords(h, w, depth_1.dtype, depth_1.device)[None]
+    pix_h = pixel_coords_homogeneous(h, w, depth_1.dtype, depth_1.device)
+    p1_camera_1 = depth_1[..., None] * _apply(cam_1.K_inv, pix_h)
+    p2_camera_2 = depth_2[..., None] * _apply(cam_2.K_inv, pix_h)
+    global_p1 = _apply(cam_1.R_c2w, p1_camera_1) + cam_1.t[:, None, None, :]
+
+    warped = backward_warp(
+        torch.cat([p2_camera_2, depth_2[..., None]], dim=-1), flow_1_2)
+
+    pix_1_in_2, p1_camera_2 = project(global_p1 + sflow_1_2, cam_2)
+    pix_static, _ = project(global_p1, cam_2)
+    # z of K @ cam_pts; with a standard intrinsics last row this is cam z
+    depth_image_1_2 = (cam_2.K[:, None, None, 2, :] * p1_camera_2).sum(-1)
+    return {
+        "dflow_1_2": pix_1_in_2 - base,
+        "staticflow_1_2": pix_static - base,
+        "depth_image_1_2": depth_image_1_2,
+        "depth_warp_1_2": warped[..., 3],
+        "depth_1": depth_1,
+        "depth_2": depth_2,
+        "scenef_1_2": sflow_1_2,
+        "global_p1": global_p1,
+        "p1_camera_2": p1_camera_2,
+        "warped_p2_camera_2": warped[..., :3],
+    }
+
+
 def depth_warp_stage(depth_1, depth_2, flow_1_2, cam_1: Camera,
                      cam_2: Camera, warp_fn=None) -> Dict[str, torch.Tensor]:
     """Unprojections, the single 4-channel warp of ``[p2_camera_2, depth_2]``
@@ -113,3 +185,42 @@ def projection_stage(depth_1, depth_2, cam_2: Camera, sflow_1_2,
         "p1_camera_2": p1_camera_2,
         "warped_p2_camera_2": stage["warped_p2_camera_2"],
     }
+
+
+def _shifts(x: torch.Tensor):
+    """(up, down, centre, left, right) neighbours over the interior."""
+    return (x[:, :-2, 1:-1], x[:, 2:, 1:-1], x[:, 1:-1, 1:-1],
+            x[:, 1:-1, :-2], x[:, 1:-1, 2:])
+
+
+def _maxpool3(x: torch.Tensor) -> torch.Tensor:
+    """3x3 max, stride 1, padded with -inf (``nn.MaxPool2d(3, 1, 1)``); a
+    max over the nine shifted maps, so tied maxima share the gradient as
+    the JAX ``jnp.max`` does."""
+    h, w = x.shape[1:]
+    pad = F.pad(x, (1, 1, 1, 1), value=float("-inf"))
+    return torch.stack([pad[:, i:i + h, j:j + w]
+                        for i in range(3) for j in range(3)]).amax(0)
+
+
+def rigidity_loss(global_p1: torch.Tensor, sf: torch.Tensor,
+                  depth_1: torch.Tensor, s: float = 1.0):
+    """Edge-aware local rigidity (reference ``calc_rigidity_loss``,
+    losses/scene_flow_projection.py:156-201; the reference's model does
+    not use it): for each of the four neighbours n of an interior pixel c,
+    ``|‖p_n - p_c‖ - ‖sf_n - sf_c‖| * exp(-s * maxpool3(|d_n - d_c|))``.
+    Returns (the sum over the neighbours ``[B,H-2,W-2]``, the terms
+    ``l{u,d,l,r}`` and ``weight_{u,d,l,r}``)."""
+    p_u, p_d, p_c, p_l, p_r = _shifts(global_p1)
+    s_u, s_d, s_c, s_l, s_r = _shifts(sf)
+    d_u, d_d, d_c, d_l, d_r = _shifts(depth_1)
+    terms, total = {}, 0.0
+    for name, p_n, s_n, d_n in (("u", p_u, s_u, d_u), ("d", p_d, s_d, d_d),
+                                ("l", p_l, s_l, d_l), ("r", p_r, s_r, d_r)):
+        l_n = (torch.linalg.vector_norm(p_n - p_c, dim=-1)
+               - torch.linalg.vector_norm(s_n - s_c, dim=-1)).abs()
+        w_n = torch.exp(-s * _maxpool3((d_n - d_c).abs()))
+        terms["l" + name] = l_n
+        terms["weight_" + name] = w_n
+        total = total + w_n * l_n
+    return total, terms

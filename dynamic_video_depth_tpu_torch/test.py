@@ -48,8 +48,8 @@ from .ops import cuda as cuda_kernels
 from .runtime import config
 from .runtime.checkpoint import load_checkpoint, load_opt
 from .runtime.device import on_device, resolve_device, slot_devices
+from .models import get_model
 from .train.losses import disparity_vali_loss
-from .train.scene_flow_motion_field import Model
 from .utils.html import Webpage
 from .utils.metrics import depth_metrics
 from .utils.visualizer import HTMLVisualizer
@@ -182,6 +182,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     dataset = get_dataset(opt_train.dataset)(opt_train, "vali")
     if len(dataset) == 0:
         raise SystemExit("no validation frames found")
+    Model = get_model(opt_train.net)
     replicas = {}
     for d in devices:
         if d not in replicas:

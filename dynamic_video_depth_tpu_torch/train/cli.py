@@ -65,9 +65,11 @@ import numpy as np
 
 from ..data import DATASETS, get_dataset
 from ..data.davis_sequence import Dataset
+from ..models import get_model
 from ..runtime import config
-from ..runtime.checkpoint import (load_checkpoint, load_opt, read_best,
-                                  resolve_resume, save_checkpoint, save_opt)
+from ..runtime.checkpoint import (AsyncSaver, load_checkpoint, load_opt,
+                                  read_best, resolve_resume, save_opt,
+                                  wait_for)
 from ..runtime.device import resolve_device
 from ..runtime.loggers import (BaseLogger, BatchCsvLogger, ComposeLogger,
                                CsvLogger, HtmlLogger, LogCumulator,
@@ -76,7 +78,7 @@ from ..runtime.loggers import (BaseLogger, BatchCsvLogger, ComposeLogger,
 from ..utils.printing import set_manual_seed
 from ..utils.visualizer import HTMLVisualizer
 from .loop import Trainer, vis_index
-from .scene_flow_motion_field import Model, numpy_dict, step_config
+from .scene_flow_motion_field import numpy_dict, step_config
 from .step import FUSED_MODES, OPTIMS
 
 __all__ = ["build_parser", "build_run", "build_trainer", "main",
@@ -178,14 +180,19 @@ def _refuse_unported(opt) -> None:
 
 
 class _RunHooks(BaseLogger):
-    """The run's own epoch-end work: the visualizer's PNGs written, and
-    ``checkpoint.pt`` at the last epoch when it is off the ``--save_every``
-    period (JAX train.py:316-322); at the end of training, even a failed
-    one, the visualizer drained and closed."""
+    """The run's own epoch work: a new epoch's saves take a new snapshot;
+    at its end the visualizer's PNGs are written, and ``checkpoint.pt`` at
+    the last epoch when it is off the ``--save_every`` period (JAX
+    train.py:316-322); at the end of training, even a failed one, the
+    queued checkpoint writes land (a write error is raised) and the
+    visualizer is drained and closed."""
 
     def __init__(self, run: "Run"):
         super().__init__()
         self.run = run
+
+    def on_epoch_begin(self, epoch):
+        self.run.saver.invalidate()
 
     def on_epoch_end(self, epoch, logs=None):
         run = self.run
@@ -199,7 +206,10 @@ class _RunHooks(BaseLogger):
                      best=run.best_holder["best"])
 
     def on_train_end(self):
-        self.run.visualizer.close()
+        try:
+            self.run.saver.close()
+        finally:
+            self.run.visualizer.close()
 
 
 class Run:
@@ -218,6 +228,7 @@ class Run:
             opt.full_logdir = join(opt.logdir or "./checkpoints", exprdir,
                                    str(opt.expr_id))
         self.logdir = logdir = opt.full_logdir
+        wait_for(logdir)  # another run's writes into this directory
         self._guard_fresh_run()
         os.makedirs(join(logdir, "nets"), exist_ok=True)
         resume_path = resolve_resume(logdir, opt.resume)
@@ -228,9 +239,11 @@ class Run:
         else:
             save_opt(logdir, opt)
 
-        # save timings (path, seconds, bytes) and visualization seconds per
-        # epoch, for whoever drives the run
-        self.saves: List[tuple] = []
+        # checkpoint writes (runtime.checkpoint.SaveRecord: the writer's
+        # seconds, bytes, the loop's blocking seconds) and visualization
+        # seconds per epoch, for whoever drives the run
+        self.saver = AsyncSaver(self.device)
+        self.saves: List[tuple] = self.saver.records
         self.vis_seconds = {}
         self.visualizer = HTMLVisualizer(n_workers=opt.vis_workers)
         self.best_holder = {"best": float("inf")}
@@ -248,8 +261,8 @@ class Run:
         if opt.html_logger:
             loggers.append(HtmlLogger(join(logdir, "html"), cumulator))
 
-        self.model = Model(opt, device=self.device,
-                           seed=opt.manual_seed or 0)
+        self.model = get_model(opt.net)(opt, device=self.device,
+                                        seed=opt.manual_seed or 0)
         dataset = get_dataset(opt.dataset)
         train, vali = dataset(opt, "train"), dataset(opt, "vali")
         print(f"#train pairs: {len(train)}  #vali frames: {len(vali)}  "
@@ -316,11 +329,10 @@ class Run:
 
     def save(self, path: str, epoch: int = 0, best: float = float("inf"),
              include_opt: bool = True) -> None:
-        t0 = time.perf_counter()
-        save_checkpoint(path, self.model.step, epoch=epoch, best=best,
+        """Queue the write of the epoch's snapshot to ``path``
+        (``AsyncSaver``); it lands by the end of ``train``."""
+        self.saver.save(path, self.model.step, epoch=epoch, best=best,
                         include_opt=include_opt)
-        self.saves.append((path, time.perf_counter() - t0,
-                           os.path.getsize(path)))
 
     def save_net(self, path: str, epoch: int = 0,
                  best: float = float("inf")) -> None:
@@ -374,6 +386,7 @@ class Run:
         ) + f" --device {opt.device}"
 
     def chain_test(self) -> None:
+        self.saver.flush()  # the command reads best.pt
         cmd = self.test_command()
         if cmd is None:
             return

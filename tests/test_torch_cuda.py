@@ -711,3 +711,137 @@ def test_cached_midas_step_launches_a_to_d_and_matches_streaming(
                   "acc_reg"):
             assert abs(a[k] - b[k]) <= 1e-5 * abs(b[k]), (k, a, b)
     assert all(r["loss"] > 0.0 for r in hist[True])
+
+
+# ------------------------------------- the saver, the mask head, the geometry
+
+def test_async_saver_on_the_card_matches_a_synchronous_save(dev, tmp_path):
+    """``AsyncSaver`` on the card: the clone is ordered before an in-place
+    update queued right after ``save`` (the next optimizer step), and the
+    file holds ``save_checkpoint``'s keys, dtypes and values bit for bit,
+    its storages on the CPU."""
+    from dynamic_video_depth_tpu_torch.runtime import checkpoint as ck
+    from dynamic_video_depth_tpu_torch.train import (LossConfig,
+                                                     SceneFlowMotionFieldStep,
+                                                     TrainStepConfig)
+
+    cfg = TrainStepConfig(lr=1e-4, depth_net="tiny", net_width=32,
+                          n_layers=2, n_freq_xyz=4, n_freq_t=2,
+                          loss=LossConfig(use_disp=True))
+    step = SceneFlowMotionFieldStep(cfg, device="cuda", seed=0)
+    for opt in step.optimizers:  # Adam state on the card
+        for group in opt.param_groups:
+            for p in group["params"]:
+                p.grad = torch.ones_like(p)
+        opt.step()
+    sync = str(tmp_path / "sync.pt")
+    ck.save_checkpoint(sync, step, epoch=3, best=0.5)
+    saver = ck.AsyncSaver("cuda")
+    path = str(tmp_path / "async.pt")
+    saver.save(path, step, epoch=3, best=0.5)
+    with torch.no_grad():
+        for p in step.net_depth.parameters():
+            p.mul_(2.0).add_(1.0)
+    saver.close()
+
+    def same(a, b):
+        if isinstance(a, torch.Tensor):
+            return (a.dtype == b.dtype and a.shape == b.shape
+                    and torch.equal(a.cpu(), b.cpu()))
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+        if isinstance(a, (list, tuple)):
+            return len(a) == len(b) and all(map(same, a, b))
+        return a == b
+
+    assert same(ck.read_checkpoint(path), ck.read_checkpoint(sync))
+    raw = torch.load(path, weights_only=True)
+    assert all(t.device.type == "cpu" for t in raw["nets"][0].values())
+    assert saver.records[0].blocking < saver.records[0].seconds + 1.0
+
+
+def test_midas_mask_head_on_the_card_matches_the_cpu(dev):
+    """MidasNet_mod with ``freeze_backbone`` at 64x64 on the card and on
+    the CPU in float32, against the CPU in float64: the card's error in the
+    depth, the mask and the heads' gradients (worst over parameters) within
+    ``chip_smoke.MASK_FACTOR`` times the float32 CPU run's; the backbone
+    takes no gradient."""
+    import copy
+
+    from chip_smoke import MASK_FACTOR
+    from dynamic_video_depth_tpu_torch.models import MidasNet
+    from dynamic_video_depth_tpu_torch.runtime.weights import (
+        bias_midas_output)
+
+    gen = torch.Generator().manual_seed(0)
+    cpu = bias_midas_output(MidasNet(mask_branch=True, freeze_backbone=True,
+                                     generator=gen))
+    card = MidasNet(mask_branch=True, freeze_backbone=True).to(dev)
+    card.load_state_dict(cpu.state_dict())
+    img = torch.rand(2, 64, 64, 3, generator=gen)
+    outs = []
+    for net, x in ((copy.deepcopy(cpu).double(), img.double()), (cpu, img),
+                   (card, img.to(dev))):
+        depth, mask = net(x)
+        (depth.sum() * 1e-3 + mask.sum()).backward()
+        outs.append(([depth.detach().cpu().double(),
+                      mask.detach().cpu().double()],
+                     {n: p.grad for n, p in net.named_parameters()}))
+    (ref, ref_g), (f32, f32_g), (on_card, card_g) = outs
+    for a, b, r in zip(on_card, f32, ref):
+        assert _rel(a, r) <= MASK_FACTOR * _rel(b, r)
+    worst = {"f32": 0.0, "card": 0.0}
+    for name, g in ref_g.items():
+        if name.startswith("pretrained."):
+            assert g is None and f32_g[name] is None \
+                and card_g[name] is None, name
+            continue
+        worst["f32"] = max(worst["f32"], _rel(f32_g[name].double(), g))
+        worst["card"] = max(worst["card"],
+                            _rel(card_g[name].cpu().double(), g))
+    assert worst["card"] <= MASK_FACTOR * worst["f32"], worst
+
+
+def test_reference_geometry_on_the_card_matches_the_cpu(dev):
+    """``flow_by_depth`` and ``scene_flow_projection`` at 224x384 on the
+    card (kernel A at C=3 and C=4, forward and backward) against the CPU
+    (the warp's plain version): values within relative 1e-5, the depths'
+    gradients within 1e-5; ``rigidity_loss`` within 1e-5."""
+    from dynamic_video_depth_tpu_torch.ops import cuda as kernels
+    from dynamic_video_depth_tpu_torch.ops import geometry
+    from dynamic_video_depth_tpu_torch.ops.camera import Camera
+
+    gen = torch.Generator().manual_seed(0)
+    b, h, w = 1, 224, 384
+    f = 0.8 * w
+    K = torch.tensor([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1.0]])[None]
+    cams = [Camera(torch.eye(3)[None], 0.05 * torch.randn(1, 3, generator=gen),
+                   K, torch.linalg.inv(K)) for _ in range(2)]
+    d1 = 2.0 + 3.0 * torch.rand(b, h, w, generator=gen)
+    d2 = 2.0 + 3.0 * torch.rand(b, h, w, generator=gen)
+    flow = track_flows(h, w, 2, n=b)
+    sf = 0.05 * torch.randn(b, h, w, 3, generator=gen)
+    results = []
+    kernels.reset_launches()
+    for device in ("cpu", dev):
+        c1, c2 = (Camera(*(t.to(device) for t in c)) for c in cams)
+        x1, x2 = (d.to(device, copy=True).requires_grad_() for d in (d1, d2))
+        fbd = geometry.flow_by_depth(x1, x2, flow.to(device), c1, c2)
+        pr = geometry.scene_flow_projection(x1, x2, flow.to(device), c1, c2,
+                                            sf.to(device))
+        (fbd["sf_by_depth"].abs().sum() + pr["depth_warp_1_2"].sum()
+         + pr["warped_p2_camera_2"].abs().sum()).backward()
+        rig, _ = geometry.rigidity_loss(fbd["global_p1"].detach(),
+                                        sf.to(device), d1.to(device))
+        results.append((fbd, pr, x1.grad, x2.grad, rig))
+    variants = kernels.launch_variants()
+    for c in (3, 4):
+        assert variants.get(("warp_fwd", c)) == 1 and \
+            variants.get(("warp_bwd", c)) == 1, variants
+    (f0, p0, g10, g20, r0), (f1, p1, g11, g21, r1) = results
+    for k in f0:
+        assert _rel(f1[k].detach().cpu(), f0[k].detach()) <= 1e-5, k
+    for k in p0:
+        assert _rel(p1[k].detach().cpu(), p0[k].detach()) <= 1e-5, k
+    assert _rel(g11.cpu(), g10) <= 1e-5 and _rel(g21.cpu(), g20) <= 1e-5
+    assert _rel(r1.cpu(), r0) <= 1e-5

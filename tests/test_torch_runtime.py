@@ -380,7 +380,7 @@ def test_save_every_and_save_net_opt(tmp_path, track_root):
     run = cli.build_run(_run_flags(track_root, run_dir, "--epoch", "3",
                                    "--save_every", "2", "--save_net_opt"))
     run.train()
-    saved = [os.path.relpath(p, run_dir) for p, _, _ in run.saves
+    saved = [os.path.relpath(p, run_dir) for p, *_ in run.saves
              if not p.endswith("best.pt")]
     assert saved == ["nets/0001.pt", "checkpoint.pt", "nets/0002.pt",
                      "nets/0003.pt", "checkpoint.pt"]
