@@ -25,7 +25,14 @@ prints no result; ``--warp_only`` is ``--only warp``.
    at 288x512 (B = 2, a 36x64 grid, four levels, r = 4) beside its
    yardstick, four ``F.grid_sample`` calls and a ``torch.cat``; fused_mlp
    forward and backward at 86,016 points, 132 -> 256 -> 256 x4 -> 3 (on no
-   path, as in the JAX package).
+   path, as in the JAX package). Then A-D at the largest shapes the bench
+   (phase 14) gives them (``BENCH_SHAPES``): the warp forward and backward
+   at [16,224,384,C] and [1,320,576,C], C = 4 and 3, at the bench's flows
+   and random +-60 px; B forward and backward and C at (1, 2), (2, 2) and
+   (8, 8) at 1,376,256 points (batch 16) and 184,320 (320x576), the plain
+   chain in chunks of ``CHAIN_CHUNK`` points at every size; D's main
+   configuration at batch 16 (320x576 is above). Each check records the
+   kernel, variant and (batch, h, w) it held.
 3. Runs the canonical DAVIS recipe through the train entry
    (``dynamic_video_depth_tpu_torch.train``): the flags of
    ``experiments/davis/train_sequence.sh`` with ``--epoch 2 --warm_sf 1``,
@@ -198,13 +205,26 @@ prints no result; ``--warp_only`` is ``--only warp``.
    functions on the card (the same tolerance), and kernel A launched at
    C=3 and C=4 by them, forward and backward (``[geometry]``).
 
+14. The port's bench (``tools/bench.py``) through its ``main``: every leg
+   of ``bench.py`` (the bf16 MiDaS step at 224x384, batch 1, gap 2, 9
+   blocks of 20 steps; MiDaS at batches 1/2/4/8/16 and gaps 1/4/8; the
+   hourglass at batches 1/4/8/16, gap 2 and gaps 1/8), then ``--wide``
+   (320x576, ``remat_depth``), each in the bench's own protocol. Its JSON
+   lines parse (printed as ``[bench json]``); every leg's loss is finite
+   and not 0; A-D launched on every MiDaS leg, A and B on every hourglass
+   leg (``BENCH_KERNELS``); each kernel and variant a leg launched was
+   checked in phase 2 at that variant, the leg's h x w and at least its
+   batch. The bench's ``[bench]`` line of each leg (its ms a step, device
+   span, pairs/s, loss and peak memory) is printed with the card in
+   front.
+
 The trainer reads each step's losses up to 16 steps late, so a ``[slice]`` or ``[variants]`` median step is the step's span on
 the device clock (an event before its first launch to one after its last),
 not a host wall that ends in a synchronisation.
 
-Phases 8, 9, 10, 11, 12 and 13 run after phase 5, in that order; phase 3's trained
-run is kept for phase 8's float32 yardstick, and each run's files are
-removed once checked.
+Phases 8, 9, 10, 11, 12, 13 and 14 run after phase 5, in that order;
+phase 3's trained run is kept for phase 8's float32 yardstick, and each
+run's files are removed once checked.
 
 Phase 1 also counts the tensor-core instructions (HMMA, HGMMA) in the two
 MLP libraries and the warp's shared atomics and global reductions with
@@ -261,6 +281,17 @@ TOL = {"warp_fwd": 1e-6, "warp_bwd": 1e-5, "mlp_fwd": 1e-4, "mlp_bwd": 1e-5,
        "loss_bwd": 1e-5, "dense_fwd": 1e-4, "dense_bwd": 1e-5,
        "corr_lookup": 1e-6}
 CHAINS = ((1, 2), (2, 2), (4, 4), (8, 8))  # (n_steps, n_evals) of gaps 1-8
+# the largest shapes the bench (tools/bench.py) gives the kernels, (batch,
+# h, w): batch 16 at 224x384 (its batch legs) and 320x576 (--wide); phase 2
+# checks A-D there too, the chain at these of CHAINS: (2, 2), which every
+# batch leg and --wide launch (gap 2), and the smallest and the largest
+# scratch
+BENCH_SHAPES = ((16, H, W), (1, *WIDE))
+BENCH_CHAINS = ((1, 2), (2, 2), (8, 8))
+# the chain's plain version runs in chunks of this many points, each chunk's
+# forward untimed (a gap-8 chain's autograd graph at 1,376,256 points
+# outgrows the card)
+CHAIN_CHUNK = 2 * N_PTS
 # A leaky-relu pre-activation within roundoff of 0 takes either slope in
 # two right float32 computations that sum in different orders (the
 # kernels' tensor-core order against cuBLAS's), which moves a max-based
@@ -655,7 +686,8 @@ def phase_build(modules=None):
 def report(results: dict, name: str, err: tuple, ms: float,
            plain_ms: float, what: str = "", variant: tuple = (),
            flops: float = 0.0, nbytes: float = 0.0,
-           library_ms=None, excluded=None, split: str = "") -> None:
+           library_ms=None, excluded=None, split: str = "",
+           shape: tuple = ()) -> None:
     """Print one comparison, fail past the tolerance, and keep the worst
     error and the first timing of each kernel with its bound; ``variant``
     names the branch checked, as ``ops.cuda.launch_variants`` keys it.
@@ -664,7 +696,9 @@ def report(results: dict, name: str, err: tuple, ms: float,
     too), ``nbytes`` the bytes a kernel must move (each input read once,
     each output written once); ``excluded`` the share of points whose
     cotangents the flip mask zeroed; ``split`` the device time of each
-    CUDA kernel of one call (``device_split``)."""
+    CUDA kernel of one call (``device_split``); ``shape`` the (batch, h, w)
+    of the inputs checked (the points' shape for the MLP kernels), kept
+    with the name and variant as (name, variant, batch, h, w)."""
     ok = err[1] <= TOL[name]
     bytes_ms = 1e3 * nbytes / HBM_BYTES
     ops_ms = 1e3 * 3.0 * flops / TF32_FLOPS
@@ -697,6 +731,9 @@ def report(results: dict, name: str, err: tuple, ms: float,
                          "library_ms": library_ms}
     if variant:
         results.setdefault("checked", set()).add((name, *variant))
+    if shape:
+        results.setdefault("shapes", set()).add((name, tuple(variant),
+                                                 *shape))
 
 
 def field_weights(gen, dev):
@@ -787,6 +824,18 @@ def warp_flows(dev) -> dict:
             "random60": random_flow(1, H, W).to(dev)}
 
 
+def bench_flow(b: int, h: int, w: int):
+    """``flow_1_2 [b, h, w, 2]`` (CPU) of the bench's batch
+    (``data/synthetic.py::synthetic_batch``, ``RandomState(0)``): +-1 px
+    Gaussian flows."""
+    import numpy as np
+
+    from dynamic_video_depth_tpu_torch.data.synthetic import synthetic_batch
+
+    return synthetic_batch(b, h, w, np.random.RandomState(0),
+                           "cpu")["flow_1_2"]
+
+
 def window_share(warp_kernel, flow, c: int) -> tuple:
     """The share of the warp backward's taps (four per pixel) that land in
     their warp's window, and the shares of the warps (tile rows) that add
@@ -812,81 +861,93 @@ def window_share(warp_kernel, flow, c: int) -> tuple:
     return torch.stack(inside).float().mean().item(), rows
 
 
+def warp_case(results: dict, src, g, flow, what: str) -> tuple:
+    """Kernel A forward and backward on ``src [B, h, w, C]`` by ``flow``
+    against the plain versions, timed beside the library yardstick
+    (``F.grid_sample`` on NCHW and its autograd backward, prepared
+    untimed); returns the four calls (kernel and library, each way)."""
+    import torch
+    import torch.nn.functional as F
+
+    from dynamic_video_depth_tpu_torch.ops.cuda import warp_kernel
+
+    b, h, w, c = src.shape
+    dev = src.device
+    xs = torch.arange(w, device=dev, dtype=torch.float32)
+    ys = torch.arange(h, device=dev, dtype=torch.float32)[:, None]
+    src_nchw = src.permute(0, 3, 1, 2).contiguous()
+    g_nchw = g.permute(0, 3, 1, 2).contiguous()
+    nbytes = 4.0 * b * h * w * (2 * c + 2)
+    out_k = warp_kernel.warp_forward_cuda(src, flow)
+    out_p = warp_kernel.backward_warp_plain(src, flow)
+    src_p = src.clone().requires_grad_(True)
+    (warp_kernel.backward_warp_plain(src_p, flow) * g).sum().backward()
+    dsrc_k = warp_kernel.warp_backward_cuda(g, flow)
+    torch.cuda.synchronize()
+
+    def plain_bwd():
+        s = src.clone().requires_grad_(True)
+        (warp_kernel.backward_warp_plain(s, flow) * g).sum().backward()
+
+    grid = torch.stack([2.0 * (xs + flow[..., 0]) / (w - 1) - 1.0,
+                        2.0 * (ys + flow[..., 1]) / (h - 1) - 1.0], -1)
+    lib_src = src_nchw.clone().requires_grad_(True)
+    lib_out = F.grid_sample(lib_src, grid, align_corners=True,
+                            padding_mode="border")
+
+    def lib_fwd():
+        return F.grid_sample(src_nchw, grid, align_corners=True,
+                             padding_mode="border")
+
+    def lib_bwd():
+        return torch.autograd.grad(lib_out, lib_src, g_nchw,
+                                   retain_graph=True)
+
+    def fwd():
+        return warp_kernel.warp_forward_cuda(src, flow)
+
+    def bwd():
+        return warp_kernel.warp_backward_cuda(g, flow)
+
+    if hasattr(warp_kernel, "window_plan"):  # not the parent's
+        share, rows = window_share(warp_kernel, flow, c)
+        what += (f" (taps in a window {share:.2%}; rows by steps 0/1/2/4: "
+                 f"{'/'.join(f'{r:.1%}' for r in rows)})")
+    fwd_ms, lib_fwd_ms = time_ms_pair(fwd, lib_fwd)
+    bwd_ms, lib_bwd_ms = time_ms_pair(bwd, lib_bwd)
+    report(results, "warp_fwd", rel_err(out_k, out_p), fwd_ms,
+           time_ms(lambda: warp_kernel.backward_warp_plain(src, flow)),
+           what, (c,), nbytes=nbytes, library_ms=lib_fwd_ms,
+           split=f"{device_split(fwd, reps=10)}; library "
+                 f"{device_split(lib_fwd, reps=10)}", shape=(b, h, w))
+    report(results, "warp_bwd", rel_err(dsrc_k, src_p.grad), bwd_ms,
+           time_ms(plain_bwd), what, (c,), nbytes=nbytes,
+           library_ms=lib_bwd_ms,
+           split=f"{device_split(bwd, reps=10)}; library "
+                 f"{device_split(lib_bwd, reps=10)}", shape=(b, h, w))
+    return fwd, lib_fwd, bwd, lib_bwd
+
+
 def phase_kernel_a(dev, results: dict) -> None:
     """Kernel A against its plain version at [1, 224, 384, C] for the depth
     warp's C = 4 and the fused loss's C = 3, at every flow of
     ``warp_flows`` (the gap-2 reading first: it is the JSON line's ``ms``);
     the library yardstick is ``F.grid_sample`` and its autograd backward.
     Then the host time of 1,000 back-to-back calls of each direction beside
-    the library's, at the gap-2 flow."""
+    the library's, at the gap-2 flow. Then the bench's largest shapes
+    (``BENCH_SHAPES``: batch 16 at 224x384, 320x576), C = 4 and 3, at the
+    bench's flows (``synthetic_batch``) and random ±60 px."""
     import torch
-    import torch.nn.functional as F
-
-    from dynamic_video_depth_tpu_torch.ops.cuda import warp_kernel
 
     gen = torch.Generator().manual_seed(1)
     flows = warp_flows(dev)
-    xs = torch.arange(W, device=dev, dtype=torch.float32)
-    ys = torch.arange(H, device=dev, dtype=torch.float32)[:, None]
     for c in (4, 3):
         src = torch.randn(1, H, W, c, generator=gen).to(dev)
         g = torch.randn(1, H, W, c, generator=gen).to(dev)
-        src_nchw = src.permute(0, 3, 1, 2).contiguous()
-        g_nchw = g.permute(0, 3, 1, 2).contiguous()
-        nbytes = 4.0 * H * W * (2 * c + 2)
         host = {}
         for name, flow in flows.items():
-            out_k = warp_kernel.warp_forward_cuda(src, flow)
-            out_p = warp_kernel.backward_warp_plain(src, flow)
-            src_p = src.clone().requires_grad_(True)
-            (warp_kernel.backward_warp_plain(src_p, flow) * g).sum().backward()
-            dsrc_k = warp_kernel.warp_backward_cuda(g, flow)
-            torch.cuda.synchronize()
-
-            def plain_bwd():
-                s = src.clone().requires_grad_(True)
-                (warp_kernel.backward_warp_plain(s, flow) * g).sum().backward()
-
-            # the library yardstick: grid_sample on NCHW, prepared untimed
-            grid = torch.stack([2.0 * (xs + flow[..., 0]) / (W - 1) - 1.0,
-                                2.0 * (ys + flow[..., 1]) / (H - 1) - 1.0],
-                               -1)
-            lib_src = src_nchw.clone().requires_grad_(True)
-            lib_out = F.grid_sample(lib_src, grid, align_corners=True,
-                                    padding_mode="border")
-
-            def lib_fwd():
-                return F.grid_sample(src_nchw, grid, align_corners=True,
-                                     padding_mode="border")
-
-            def lib_bwd():
-                return torch.autograd.grad(lib_out, lib_src, g_nchw,
-                                           retain_graph=True)
-
-            def fwd():
-                return warp_kernel.warp_forward_cuda(src, flow)
-
-            def bwd():
-                return warp_kernel.warp_backward_cuda(g, flow)
-
-            what = f" [1,{H},{W},{c}] flow={name}"
-            if hasattr(warp_kernel, "window_plan"):  # not the parent's
-                share, rows = window_share(warp_kernel, flow, c)
-                what += (f" (taps in a window {share:.2%}; rows by steps "
-                         f"0/1/2/4: "
-                         f"{'/'.join(f'{r:.1%}' for r in rows)})")
-            fwd_ms, lib_fwd_ms = time_ms_pair(fwd, lib_fwd)
-            bwd_ms, lib_bwd_ms = time_ms_pair(bwd, lib_bwd)
-            report(results, "warp_fwd", rel_err(out_k, out_p), fwd_ms,
-                   time_ms(lambda: warp_kernel.backward_warp_plain(src, flow)),
-                   what, (c,), nbytes=nbytes, library_ms=lib_fwd_ms,
-                   split=f"{device_split(fwd, reps=10)}; library "
-                         f"{device_split(lib_fwd, reps=10)}")
-            report(results, "warp_bwd", rel_err(dsrc_k, src_p.grad), bwd_ms,
-                   time_ms(plain_bwd), what, (c,), nbytes=nbytes,
-                   library_ms=lib_bwd_ms,
-                   split=f"{device_split(bwd, reps=10)}; library "
-                         f"{device_split(lib_bwd, reps=10)}")
+            fwd, lib_fwd, bwd, lib_bwd = warp_case(
+                results, src, g, flow, f" [1,{H},{W},{c}] flow={name}")
             if name == "gap2":
                 host = {"warp_fwd": (host_us(fwd), host_us(lib_fwd)),
                         "warp_bwd": (host_us(bwd), host_us(lib_bwd))}
@@ -895,10 +956,20 @@ def phase_kernel_a(dev, results: dict) -> None:
             print(f"[host] {kernel} [1,{H},{W},{c}] flow=gap2: {ours:.2f} µs "
                   f"per call, {lib_name} {lib:.2f} µs (1,000 calls back to "
                   f"back, one sync)", flush=True)
+    for b, h, w in BENCH_SHAPES:
+        flows = {"bench": bench_flow(b, h, w).to(dev),
+                 "random60": random_flow(b, h, w).to(dev)}
+        for c in (4, 3):
+            src = torch.randn(b, h, w, c, generator=gen).to(dev)
+            g = torch.randn(b, h, w, c, generator=gen).to(dev)
+            for name, flow in flows.items():
+                warp_case(results, src, g, flow,
+                          f" [{b},{h},{w},{c}] flow={name}")
 
 
 def phase_kernel_b(dev, results: dict) -> None:
-    """Kernel B against its plain version at 224x384."""
+    """Kernel B against its plain version at the points of 224x384, then at
+    those of ``BENCH_SHAPES`` (1,376,256 and 184,320)."""
     import torch
 
     from dynamic_video_depth_tpu_torch.ops.cuda import mlp_kernel
@@ -906,110 +977,158 @@ def phase_kernel_b(dev, results: dict) -> None:
 
     gen = torch.Generator().manual_seed(0)
 
-    # kernel B at N = 224 * 384 with the canonical field's random weights
+    # kernel B with the canonical field's random weights
     ws, bs = field_weights(gen, dev)
     dims = [ws[0].shape[1]] + [w.shape[0] for w in ws]
-    pts, ts = field_points(gen, dev)
-    gm = torch.randn(N_PTS, 3, generator=gen).to(dev)
     consts = mlp_kernel.embed_consts(16, 16, True, dev)
-    near = flip_points(
-        [sceneflow_features(pts, ts, 16, 16, True)], ws, bs)
-    gm, = zero_rows(near, gm)
-    fwd_k = mlp_kernel.mlp_forward_cuda(pts, ts, consts, ws, bs)
-    dpts_k, dts_k, dws_k, dbs_k = mlp_kernel.mlp_backward_cuda(
-        pts, ts, consts, ws, bs, gm)
+    for b, h, w in ((1, H, W), *BENCH_SHAPES):
+        n = b * h * w
+        pts, ts = field_points(gen, dev, n)
+        gm = torch.randn(n, 3, generator=gen).to(dev)
+        near = flip_points(
+            [sceneflow_features(pts, ts, 16, 16, True)], ws, bs)
+        gm, = zero_rows(near, gm)
+        fwd_k = mlp_kernel.mlp_forward_cuda(pts, ts, consts, ws, bs)
+        dpts_k, dts_k, dws_k, dbs_k = mlp_kernel.mlp_backward_cuda(
+            pts, ts, consts, ws, bs, gm)
 
-    def plain_fwd():
-        return mlp_kernel.mlp_embed_plain(pts, ts, ws, bs, 16, 16, True)
+        def plain_fwd():
+            return mlp_kernel.mlp_embed_plain(pts, ts, ws, bs, 16, 16, True)
 
-    def plain_grads():
-        leaves = [t.clone().requires_grad_(True) for t in (pts, ts, *ws, *bs)]
-        out = mlp_kernel.mlp_embed_plain(leaves[0], leaves[1], leaves[2:8],
-                                         leaves[8:], 16, 16, True)
-        (out * gm).sum().backward()
-        return [t.grad for t in leaves]
+        def plain_grads():
+            leaves = [t.clone().requires_grad_(True)
+                      for t in (pts, ts, *ws, *bs)]
+            out = mlp_kernel.mlp_embed_plain(leaves[0], leaves[1],
+                                             leaves[2:8], leaves[8:], 16, 16,
+                                             True)
+            (out * gm).sum().backward()
+            return [t.grad for t in leaves]
 
-    grads_p = plain_grads()
-    grads_k = [dpts_k, dts_k, *dws_k, *dbs_k]
-    torch.cuda.synchronize()
-    bwd_err = max((rel_err(k, p) for k, p in zip(grads_k, grads_p)),
-                  key=lambda e: e[1])
-    # the MLP rows' library yardstick is the cuBLAS-backed plain stack
-    fwd_plain_ms = time_ms(plain_fwd)
-    bwd_plain_ms = time_ms(plain_grads, reps=10)
-    report(results, "mlp_fwd", rel_err(fwd_k, plain_fwd()),
-           time_ms(lambda: mlp_kernel.mlp_forward_cuda(pts, ts, consts, ws,
-                                                       bs)),
-           fwd_plain_ms, flops=mlp_flops(dims, N_PTS),
-           library_ms=fwd_plain_ms, split=device_split(
-               lambda: mlp_kernel.mlp_forward_cuda(pts, ts, consts, ws, bs)))
-    report(results, "mlp_bwd", bwd_err,
-           time_ms(lambda: mlp_kernel.mlp_backward_cuda(
-               pts, ts, consts, ws, bs, gm), reps=10),
-           bwd_plain_ms, flops=3 * mlp_flops(dims, N_PTS),
-           library_ms=bwd_plain_ms, excluded=near.float().mean().item(),
-           split=device_split(lambda: mlp_kernel.mlp_backward_cuda(
-               pts, ts, consts, ws, bs, gm)))
+        def fwd():
+            return mlp_kernel.mlp_forward_cuda(pts, ts, consts, ws, bs)
+
+        def bwd():
+            return mlp_kernel.mlp_backward_cuda(pts, ts, consts, ws, bs, gm)
+
+        grads_p = plain_grads()
+        grads_k = [dpts_k, dts_k, *dws_k, *dbs_k]
+        torch.cuda.synchronize()
+        bwd_err = max((rel_err(k, p) for k, p in zip(grads_k, grads_p)),
+                      key=lambda e: e[1])
+        del grads_p, grads_k, dpts_k, dts_k, dws_k, dbs_k
+        what = f" {n:,} points ([{b},{h},{w}])"
+        # the MLP rows' library yardstick is the cuBLAS-backed plain stack
+        fwd_plain_ms = time_ms(plain_fwd)
+        bwd_plain_ms = time_ms(plain_grads, reps=10)
+        report(results, "mlp_fwd", rel_err(fwd_k, plain_fwd()),
+               time_ms(fwd), fwd_plain_ms, what, flops=mlp_flops(dims, n),
+               library_ms=fwd_plain_ms, split=device_split(fwd),
+               shape=(b, h, w))
+        report(results, "mlp_bwd", bwd_err, time_ms(bwd, reps=10),
+               bwd_plain_ms, what, flops=3 * mlp_flops(dims, n),
+               library_ms=bwd_plain_ms, excluded=near.float().mean().item(),
+               split=device_split(bwd), shape=(b, h, w))
+        del fwd_k, near
+        torch.cuda.empty_cache()
+
+
+def chain_plain_grads(pts, ts, dt, ws, bs, gs, args, chunk: int):
+    """The plain chain over ``chunk`` points at a time: its values, the
+    gradients at every input (``pts``, ``ts``, ``dt``, then the weights and
+    biases) for the cotangents ``gs`` by autograd, and the device ms of the
+    backwards alone (each chunk's forward untimed; ``time_ms`` of each
+    chunk's backward, summed). The points' values and gradients are
+    concatenated, the parameters' gradients summed over the chunks in
+    order."""
+    import torch
+
+    from dynamic_video_depth_tpu_torch.ops.cuda import chain_kernel
+
+    params = [t.clone().requires_grad_(True) for t in (*ws, *bs)]
+    values, point_grads, param_grads, ms = [], [], None, 0.0
+    for i in range(0, pts.shape[0], chunk):
+        leaves = [t[i:i + chunk].clone().requires_grad_(True)
+                  for t in (pts, ts, dt)]
+        outs = chain_kernel.chain_plain(*leaves, params[:6], params[6:], 16,
+                                        16, True, *args)
+        cots = [g[i:i + chunk] for g in gs]
+
+        def backward():
+            return torch.autograd.grad(outs, leaves + params, cots,
+                                       retain_graph=True)
+
+        got = backward()
+        ms += time_ms(backward, reps=5, warmup=1)
+        values.append([o.detach() for o in outs])
+        point_grads.append(got[:3])
+        param_grads = list(got[3:]) if param_grads is None else [
+            a + b for a, b in zip(param_grads, got[3:])]
+        del outs, got
+    return ([torch.cat(v) for v in zip(*values)],
+            [torch.cat(g) for g in zip(*point_grads)] + param_grads, ms)
 
 
 def phase_kernel_c(dev, results: dict) -> None:
-    """Kernel C at N = 86,016, full width, for every (n_steps, n_evals) of
-    ``CHAINS``: the chain's values and every gradient against autograd of
-    the plain chain; times of the backward alone (kernel C vs autograd's
-    backward of the plain chain)."""
+    """Kernel C, full width, at N = 86,016 for every (n_steps, n_evals) of
+    ``CHAINS``, then at the points of ``BENCH_SHAPES`` (1,376,256 and
+    184,320) for ``BENCH_CHAINS``: the chain's values and every gradient
+    against autograd of the plain chain (``chain_plain_grads``, in chunks
+    of ``CHAIN_CHUNK`` points). Times of the backward alone: kernel C
+    against the plain chain's backwards, their forwards untimed."""
     import torch
 
     from dynamic_video_depth_tpu_torch.ops.cuda import chain_kernel, mlp_kernel
 
     gen = torch.Generator().manual_seed(2)
     ws, bs = field_weights(gen, dev)
-    pts, ts = field_points(gen, dev)
-    dt = torch.full((N_PTS, 1), 1.0 / 6.0, device=dev)
     consts = mlp_kernel.embed_consts(16, 16, True, dev)
     dims = [ws[0].shape[1]] + [w.shape[0] for w in ws]
-    gs_all = [(torch.randn(N_PTS, 3, generator=gen) / N_PTS).to(dev)
-              for _ in range(3)]
-    for n_steps, n_evals in CHAINS:
-        args = (n_steps, n_evals, 100.0)
-        acc, f0, f1, stash = chain_kernel.chain_forward_cuda(
-            pts, ts, dt, consts, ws, bs, *args)
-        near = flip_points(chain_features(pts, ts, dt, ws, bs, 16, 16, True,
-                                          n_evals, 100.0), ws, bs)
-        gs = zero_rows(near, *gs_all)
+    for (b, h, w), chains in (((1, H, W), CHAINS),
+                              *((shape, BENCH_CHAINS)
+                                for shape in BENCH_SHAPES)):
+        n = b * h * w
+        pts, ts = field_points(gen, dev, n)
+        dt = torch.full((n, 1), 1.0 / 6.0, device=dev)
+        gs_all = [(torch.randn(n, 3, generator=gen) / n).to(dev)
+                  for _ in range(3)]
+        for n_steps, n_evals in chains:
+            args = (n_steps, n_evals, 100.0)
+            acc, f0, f1, stash = chain_kernel.chain_forward_cuda(
+                pts, ts, dt, consts, ws, bs, *args)
+            near = flip_points(chain_features(pts, ts, dt, ws, bs, 16, 16,
+                                              True, n_evals, 100.0), ws, bs)
+            gs = zero_rows(near, *gs_all)
 
-        def kernel_bwd():
-            return chain_kernel.chain_backward_cuda(
-                pts, ts, dt, consts, ws, bs, stash, *gs, *args)
+            def kernel_bwd():
+                return chain_kernel.chain_backward_cuda(
+                    pts, ts, dt, consts, ws, bs, stash, *gs, *args)
 
-        got = kernel_bwd()
-        leaves = [t.clone().requires_grad_(True)
-                  for t in (pts, ts, dt, *ws, *bs)]
-        outs = chain_kernel.chain_plain(leaves[0], leaves[1], leaves[2],
-                                        leaves[3:9], leaves[9:], 16, 16,
-                                        True, *args)
-
-        def plain_bwd():
-            return torch.autograd.grad(outs, leaves, gs, retain_graph=True)
-
-        want = plain_bwd()
-        torch.cuda.synchronize()
-        what = f" (n_steps, n_evals) = ({n_steps}, {n_evals})"
-        fwd_err = max((rel_err(a, b) for a, b in zip((acc, f0, f1), outs)),
-                      key=lambda e: e[1])
-        print(f"[kernel] chain_fwd{what}: max_abs_err {fwd_err[0]:.3e} rel "
-              f"{fwd_err[1]:.3e} (tol {TOL['chain_fwd']:.0e})", flush=True)
-        if fwd_err[1] > TOL["chain_fwd"]:
-            fail(f"chain forward{what}: rel {fwd_err[1]:.3e}")
-        got = [got[0], got[1], got[2], *got[3], *got[4]]
-        plain_ms = time_ms(plain_bwd, reps=5)
-        report(results, "chain_bwd",
-               max((rel_err(a, b) for a, b in zip(got, want)),
-                   key=lambda e: e[1]),
-               time_ms(kernel_bwd, reps=5), plain_ms, what,
-               (n_steps, n_evals), flops=3 * n_evals * mlp_flops(dims, N_PTS),
-               library_ms=plain_ms, excluded=near.float().mean().item(),
-               split=device_split(kernel_bwd))
-        del outs, want, leaves
+            got = kernel_bwd()
+            outs, want, plain_ms = chain_plain_grads(pts, ts, dt, ws, bs, gs,
+                                                     args, CHAIN_CHUNK)
+            torch.cuda.synchronize()
+            what = (f" (n_steps, n_evals) = ({n_steps}, {n_evals})"
+                    + (f" {n:,} points ([{b},{h},{w}])"
+                       if (b, h, w) != (1, H, W) else ""))
+            fwd_err = max((rel_err(x, y) for x, y in zip((acc, f0, f1),
+                                                          outs)),
+                          key=lambda e: e[1])
+            print(f"[kernel] chain_fwd{what}: max_abs_err {fwd_err[0]:.3e} "
+                  f"rel {fwd_err[1]:.3e} (tol {TOL['chain_fwd']:.0e})",
+                  flush=True)
+            if fwd_err[1] > TOL["chain_fwd"]:
+                fail(f"chain forward{what}: rel {fwd_err[1]:.3e}")
+            got = [got[0], got[1], got[2], *got[3], *got[4]]
+            report(results, "chain_bwd",
+                   max((rel_err(x, y) for x, y in zip(got, want)),
+                       key=lambda e: e[1]),
+                   time_ms(kernel_bwd, reps=5), plain_ms, what,
+                   (n_steps, n_evals),
+                   flops=3 * n_evals * mlp_flops(dims, n),
+                   library_ms=plain_ms, excluded=near.float().mean().item(),
+                   split=device_split(kernel_bwd), shape=(b, h, w))
+            del outs, want, got, stash, acc, f0, f1, near, gs
+            torch.cuda.empty_cache()
 
 
 def loss_inputs(dev, h: int, w: int, b: int = 1):
@@ -1054,11 +1173,11 @@ def phase_kernel_d(dev, results: dict) -> None:
     """Kernel D forward and backward at [1,224,384] and [1,320,576] in the
     use_disp + MiDaS main, the same in warm-up, the disparity-ratio and the
     plain-residual configurations; then the main configuration at batch 2,
-    at 37x53 (rows of no multiple of 4 pixels) and with 224x384 fields 4
-    bytes past 16. The forward's profile shows no more kernels than
-    ``FORWARD_LAUNCHES`` (one, no memset) and its sums are bit-equal over
-    repeated calls; the host time of 1,000 calls of each direction at
-    224x384."""
+    at 37x53 (rows of no multiple of 4 pixels), with 224x384 fields 4
+    bytes past 16 and at the bench's batch 16. The forward's profile shows
+    no more kernels than ``FORWARD_LAUNCHES`` (one, no memset) and its sums
+    are bit-equal over repeated calls; the host time of 1,000 calls of
+    each direction at 224x384."""
     import torch
 
     from dynamic_video_depth_tpu_torch.ops.cuda import loss_kernel
@@ -1070,7 +1189,7 @@ def phase_kernel_d(dev, results: dict) -> None:
     main = {"use_disp+midas main": configs["use_disp+midas main"]}
     cases = [(1, H, W, False, configs), (1, *WIDE, False, configs),
              (2, H, W, False, main), (1, 37, 53, False, main),
-             (1, H, W, True, main)]
+             (1, H, W, True, main), (16, H, W, False, main)]
     # the parent's forward was a pixel kernel and a reduce
     n_fwd = getattr(loss_kernel, "FORWARD_LAUNCHES", 2)
     for b, h, w, shifted, cfgs in cases:
@@ -1118,13 +1237,13 @@ def phase_kernel_d(dev, results: dict) -> None:
             # forward writes 4 sums, the backward 9 gradient floats a pixel
             report(results, "loss_fwd", rel_err_each(sums, ref.detach()),
                    time_ms(fwd), time_ms(plain_fwd), what,
-                   nbytes=4.0 * 13 * b * h * w, split=split)
+                   nbytes=4.0 * 13 * b * h * w, split=split, shape=(b, h, w))
             report(results, "loss_bwd",
                    max((rel_err(k, p) for k, p in zip(grads, ref_grads)),
                        key=lambda e: e[1]),
                    time_ms(bwd), time_ms(plain_bwd), what,
                    nbytes=4.0 * 22 * b * h * w,
-                   split=device_split(bwd, reps=10))
+                   split=device_split(bwd, reps=10), shape=(b, h, w))
             if (b, h, w, shifted) == (1, H, W, False) and \
                     label == "use_disp+midas main":
                 print(f"[host] loss_fwd / loss_bwd{what}: {host_us(fwd):.2f}"
@@ -3697,6 +3816,80 @@ def phase_geometry(dev, card: str) -> dict:
 
 
 
+# phase 14: the kernels each leg family of the bench must launch: A-D on the
+# MiDaS legs (every evaluation's backward runs in the chain, C, so B's
+# backward on none), A and B on the hourglass legs.
+BENCH_KERNELS = {"midas": ("warp_fwd", "warp_bwd", "mlp_fwd", "chain_bwd",
+                           "loss_fwd", "loss_bwd"),
+                 "hourglass": ("warp_fwd", "warp_bwd", "mlp_fwd")}
+
+
+def run_bench(bench, argv: list, card: str) -> dict:
+    """``bench.main(argv)`` in this process, its output captured; its
+    ``[bench]`` leg lines printed with ``card`` in front and its JSON line
+    parsed (a nonzero status or an unparsable last line fails)."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = bench.main(argv)
+    lines = out.getvalue().strip().splitlines()
+    if rc != 0:
+        fail(f"the bench {argv} exited {rc}: {lines[-3:]}")
+    try:
+        result = json.loads(lines[-1])
+    except (IndexError, json.JSONDecodeError) as exc:
+        fail(f"the bench {argv} printed no JSON line last: {exc}")
+    for line in lines[1:-1]:  # the first is the card's
+        print(line.replace("[bench] ", f"[bench] {card}: ", 1), flush=True)
+    print(f"[bench json] {json.dumps(result)}", flush=True)
+    return result
+
+
+def phase_bench(dev, card: str, checked: set, shapes: set) -> dict:
+    """Phase 14: ``tools/bench.py``'s legs through its ``main`` on the card,
+    then ``--wide``. Each JSON line parses; every leg's loss is finite and
+    not 0; each leg launched ``BENCH_KERNELS`` of its family; every kernel
+    and variant a leg launched was checked in phase 2 at that variant, the
+    leg's (h, w) and a batch at least the leg's (``shapes``), and every
+    variant the bench launched too (``checked``). Returns the bench's
+    launches by variant."""
+    import torch
+
+    from dynamic_video_depth_tpu_torch.tools import bench
+
+    t0 = time.perf_counter()
+    variants = collections.Counter()
+    for argv in ([], ["--wide"]):
+        result = run_bench(bench, argv, card)
+        for leg in result["legs"]:
+            net, b, h, w = leg["net"], leg["batch"], leg["h"], leg["w"]
+            if not (math.isfinite(leg["loss"]) and leg["loss"] != 0.0):
+                fail(f"bench {leg['name']}: loss {leg['loss']}")
+            missing = [k for k in BENCH_KERNELS[net]
+                       if not leg["launches"].get(k)]
+            if missing:
+                fail(f"bench {leg['name']}: kernels not launched: {missing}")
+            by_kernel = collections.defaultdict(set)
+            for name, *key, n in leg["variants"]:
+                by_kernel[name].add(tuple(key))
+                variants[(name, *key)] += n
+            for k in leg["launches"]:
+                for key in by_kernel.get(k, {()}):
+                    if not any(s[:2] == (k, key) and s[3:] == (h, w)
+                               and s[2] >= b for s in shapes):
+                        fail(f"bench {leg['name']}: {k} {key} ran at batch "
+                             f"{b}, {h}x{w}, a shape phase 2 did not check")
+        torch.cuda.empty_cache()
+    unchecked = set(variants) - checked
+    if unchecked:
+        fail(f"the bench launched kernel variants that phase 2 did not "
+             f"check: {sorted(unchecked)}")
+    print(f"[phase 14] {time.perf_counter() - t0:.1f} s", flush=True)
+    return variants
+
+
 # --only: the kernel family's module and phase
 ONLY = {"warp": ("warp_kernel", phase_kernel_a),
         "loss": ("loss_kernel", phase_kernel_d),
@@ -3765,6 +3958,9 @@ def main() -> None:
         torch.cuda.empty_cache()
         ref_variants = phase_reference(dev, workdir, card)
         torch.cuda.empty_cache()
+        bench_variants = phase_bench(dev, card, results["checked"],
+                                     results.pop("shapes"))
+        torch.cuda.empty_cache()
     if not (bf16_variants.get(("warp_fwd", 3))
             and var_variants.get(("warp_fwd", 3))):
         fail(f"the bf16 or variant path did not launch the warp at 3 "
@@ -3779,7 +3975,8 @@ def main() -> None:
     unchecked = (set(midas_variants) | set(hourglass_variants)
                  | set(pre_variants) | set(bf16_variants)
                  | set(var_variants) | set(pipe_variants)
-                 | set(tool_variants) | set(ref_variants)) \
+                 | set(tool_variants) | set(ref_variants)
+                 | set(bench_variants)) \
         - results.pop("checked")
     if unchecked:
         fail(f"a path launched kernel variants that phase 2 did not check: "

@@ -8,6 +8,8 @@ Writes a miniature dataset in the reference datafile layout
 without the DAVIS artifacts. The scene is a textured plane (+ an optional
 moving square) seen by a slowly translating camera; flows are the exact
 depth-induced flows, so the optimization has a consistent solution.
+``synthetic_batch`` makes a batch of random pairs in memory, the
+benchmark's input.
 """
 
 from __future__ import annotations
@@ -263,3 +265,40 @@ def write_raw_davis(root: str, track: str, n_frames: int = 4, h: int = 64,
                np.hstack([idx, matrices.reshape(n_frames, 16)]))
     with open(join(tri, f"{track}.obj"), "w") as f:
         f.writelines(f"v {x} {y} {z}\n" for x, y, z in points)
+
+
+def synthetic_batch(b: int, h: int, w: int, rng: np.random.RandomState,
+                    device):
+    """``b`` random pairs at ``h x w`` in the train step's batch layout, as
+    float32 tensors on ``device`` (counterpart of ``__graft_entry__.py::
+    _synthetic_batch``, the benchmark's input): random images and flows,
+    full masks, identity rotations, a 1 cm translation, intrinsics with a
+    focal length of 0.8 w. The arrays come from the same draws of ``rng``
+    in the same order, so both packages make the same batch from one
+    seed."""
+    import torch
+
+    f = 0.8 * w
+    K = np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]], np.float32)
+    batch = {
+        "img_1": rng.rand(b, h, w, 3).astype(np.float32),
+        "img_2": rng.rand(b, h, w, 3).astype(np.float32),
+        "flow_1_2": rng.randn(b, h, w, 2).astype(np.float32),
+        "flow_2_1": rng.randn(b, h, w, 2).astype(np.float32),
+        "mask_1": np.ones((b, h, w), np.float32),
+        "mask_2": np.ones((b, h, w), np.float32),
+        "motion_seg_1": np.ones((b, h, w, 1), np.float32),
+        "R_1": np.tile(np.eye(3, dtype=np.float32), (b, 1, 1)),
+        "R_2": np.tile(np.eye(3, dtype=np.float32), (b, 1, 1)),
+        "K": np.tile(K, (b, 1, 1)),
+        "K_inv": np.tile(np.linalg.inv(K).astype(np.float32), (b, 1, 1)),
+        "t_1": np.zeros((b, 3), np.float32),
+        "t_2": np.full((b, 3), 0.01, np.float32),
+        "time_stamp_1": np.zeros((b, h, w, 1), np.float32),
+        "time_stamp_2": np.full((b, h, w, 1), 0.1, np.float32),
+        "time_step": np.float32(0.1),
+        "frame_id_1": np.zeros((b,), np.float32),
+        "frame_id_2": np.ones((b,), np.float32),
+    }
+    return {k: torch.from_numpy(np.asarray(v)).to(device)
+            for k, v in batch.items()}

@@ -9,6 +9,14 @@ imports it there (``models/raft.py`` imports ``lookup_correlation`` from
 the kernel's wrapper). The reasons follow ``tests/test_torch_loop.py::
 ABSENT``: the North star's exclusions, and JAX-only machinery whose job the
 port does another way.
+
+The JAX package's scripts, the repo root's and ``scripts/``'s, are held the
+same way: a script (a file with a ``__main__`` block) has a counterpart in
+``SCRIPTS`` or a reason in ``SCRIPTS_EXCLUDED``, and a module of entry
+functions without one (``__graft_entry__.py``) the same for each of its
+public functions, keyed ``<file>::<name>``. A counterpart names a file of
+the repo, or ``<file>::<name>`` a top-level name in it. ``chip_smoke.py``
+is the port's own script.
 """
 
 import ast
@@ -59,6 +67,42 @@ EXCLUDED = {
                                          "(train/fleet.py)",
     "ops/pallas/*::*": "Pallas kernels; ops/cuda/ + csrc/",
 }
+
+PORT = "dynamic_video_depth_tpu_torch/"
+# the JAX package's scripts -> the port's counterparts
+SCRIPTS = {
+    "bench.py": PORT + "tools/bench.py",
+    "train.py": PORT + "train/__main__.py",
+    "train_fleet.py": PORT + "train/fleet.py",
+    "test.py": PORT + "test.py",
+    "__graft_entry__.py::dryrun_multichip": PORT + "tools/release_gate.py::"
+                                            "dryrun",
+    "scripts/release_gate.py": PORT + "tools/release_gate.py",
+    "scripts/depth_golden_check.py": PORT + "tools/golden_depth.py",
+    "scripts/raft_golden_check.py": PORT + "tools/golden_raft.py",
+    "scripts/step_profile.py": PORT + "tools/step_profile.py",
+    "scripts/roofline.py": PORT + "tools/roofline.py",
+    "scripts/preprocess/run_davis.py": PORT + "preprocess/__main__.py",
+    "scripts/preprocess/run_shutterstock.py": PORT + "preprocess/"
+                                              "run_shutterstock.py",
+    # every kernel against its plain version on the card: phase 2
+    "scripts/hw_kernel_parity.py": "chip_smoke.py::phase_kernel_a",
+}
+# pattern over the script's path (or "<file>::<name>") -> the reason
+SCRIPTS_EXCLUDED = {
+    "__graft_entry__.py::entry": "JAX-only: a jittable forward and its "
+                                 "example arguments (a compile check of "
+                                 "the JAX step)",
+    "scripts/precompile_variants.py": "static (gap, warm) compile buckets "
+                                      "and the compilation cache (North "
+                                      "star)",
+    "scripts/probe_*.py": "TPU probes of s2d layouts (North star)",
+    "scripts/export_reference_checkpoint.py": "the torch <-> Flax "
+                                              "migration (North star); the "
+                                              "port writes the reference's "
+                                              ".pt itself",
+}
+PORT_SCRIPTS = {"chip_smoke.py"}
 
 
 def public_names(path: str, imports: bool) -> set:
@@ -132,3 +176,74 @@ def test_the_map_sees_both_packages(unmatched):
         assert name in jax_names[mod] and name in port_names[mod], (mod,
                                                                    name)
     assert any(k.startswith("ops/pallas/") for k in unmatched)
+
+
+def has_main(path: str) -> bool:
+    """The file has an ``if __name__ == "__main__":`` block."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    return any(isinstance(n, ast.If) and "__main__" in ast.unparse(n.test)
+               for n in tree.body)
+
+
+def jax_scripts() -> list:
+    """Every script of the JAX package, or ``<file>::<name>`` for each
+    public function of a root module without a ``__main__`` block."""
+    paths = sorted(
+        [f for f in os.listdir(ROOT) if f.endswith(".py")
+         and f not in PORT_SCRIPTS]
+        + [os.path.relpath(os.path.join(d, f), ROOT).replace(os.sep, "/")
+           for d, _, files in os.walk(os.path.join(ROOT, "scripts"))
+           for f in files if f.endswith(".py")])
+    out = []
+    for rel in paths:
+        path = os.path.join(ROOT, rel)
+        if has_main(path):
+            out.append(rel)
+        else:
+            out += [f"{rel}::{n}" for n in sorted(public_names(path, False))]
+    return out
+
+
+def script_entry(key: str):
+    if key in SCRIPTS:
+        return key
+    return next((p for p in SCRIPTS_EXCLUDED
+                 if fnmatch.fnmatchcase(key, p)), None)
+
+
+def test_every_jax_script_has_a_counterpart_or_a_reason():
+    missing = [k for k in jax_scripts() if script_entry(k) is None]
+    assert not missing, (
+        f"JAX scripts with no counterpart in SCRIPTS and no reason in "
+        f"SCRIPTS_EXCLUDED: {missing}")
+
+
+def test_every_script_entry_is_needed():
+    entries = set(SCRIPTS) | set(SCRIPTS_EXCLUDED)
+    used = {script_entry(k) for k in jax_scripts()}
+    assert not entries - used, sorted(entries - used)
+
+
+@pytest.mark.parametrize("key", sorted(SCRIPTS))
+def test_script_counterpart_exists(key):
+    """The counterpart file is there and a named counterpart is defined at
+    its top level; a whole script's counterpart runs as a script."""
+    path, _, name = SCRIPTS[key].partition("::")
+    full = os.path.join(ROOT, path)
+    assert os.path.isfile(full), SCRIPTS[key]
+    if name:
+        assert name in public_names(full, imports=False), SCRIPTS[key]
+    else:
+        assert has_main(full), f"{SCRIPTS[key]} has no __main__ block"
+
+
+def test_the_script_map_sees_the_scripts():
+    keys = jax_scripts()
+    for key in ("bench.py", "scripts/release_gate.py",
+                "scripts/preprocess/run_davis.py",
+                "__graft_entry__.py::dryrun_multichip",
+                "__graft_entry__.py::entry"):
+        assert key in keys, key
+    assert not any(k.startswith("chip_smoke.py") for k in keys)
+    assert len(keys) == len(set(keys)) >= 18
