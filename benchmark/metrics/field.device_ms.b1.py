@@ -1,0 +1,6 @@
+"""``field.device_ms.b1``: ``field.device_ms`` in the batch-1 cells, where it moves
+``pairs_per_s.b1``."""
+
+from benchmark.spec import reader
+
+read = reader("field.device_ms")

@@ -1,0 +1,6 @@
+"""``step.device_ms.bf16``: ``step.device_ms`` in the bfloat16 batch-8 cells, where it moves
+``pairs_per_s.bf16``."""
+
+from benchmark.spec import reader
+
+read = reader("step.device_ms")

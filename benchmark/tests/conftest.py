@@ -1,0 +1,16 @@
+"""The benchmark's own tests: ``python -m pytest benchmark/tests -q``.
+Tests marked ``cuda`` decide inside the test whether a card is present and
+skip without one."""
+
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skipped without one")
