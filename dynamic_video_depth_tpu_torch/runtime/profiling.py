@@ -1,22 +1,25 @@
-"""Tracing and step timing (counterpart of ``dynamic_video_depth_tpu/
-runtime/profiling.py``).
+"""Tracing (counterpart of ``dynamic_video_depth_tpu/runtime/
+profiling.py``).
 
 ``trace_if`` writes a ``torch.profiler`` trace as Chrome trace JSON (open
 it in Perfetto, ui.perfetto.dev, or chrome://tracing); ``annotate`` names
-a span of it. ``StepTimer`` is the reference's wall-clock EMA of
-data_time / batch_time (models/netinterface.py:291-302).
+a span of it. The trace's ``ts`` is on the wall clock, so the spans and
+the device's events share one clock. The reference's wall-clock EMA of
+the step (``StepTimer``) has no counterpart: the loop's CUDA events time
+each step.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
 from typing import Optional
 
 import torch
 
 TRACE_NAME = "trace.json"
+# what ``annotate`` returns while no profiler runs: reusable and reentrant
+_NO_SPAN = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -39,24 +42,11 @@ def trace_if(logdir: Optional[str], enabled: bool = True):
 
 
 def annotate(name: str):
-    """A named span on the profiler's timeline (a no-op outside a
-    trace)."""
+    """A named span on the profiler's timeline. While no profiler is
+    active it returns a shared null context and builds no
+    ``record_function``: a span off costs one check, under 1 µs of a CPU
+    core against 12-15 µs for a ``record_function``, so spans can stay on
+    the step's path."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
     return torch.profiler.record_function(name)
-
-
-class StepTimer:
-    """Wall-clock step timer with an exponential moving average."""
-
-    def __init__(self, ema: float = 0.9):
-        self.ema = ema
-        self.avg = None
-        self._t0 = None
-
-    def tic(self):
-        self._t0 = time.time()
-
-    def toc(self) -> float:
-        dt = time.time() - self._t0
-        self.avg = dt if self.avg is None else \
-            self.ema * self.avg + (1 - self.ema) * dt
-        return dt

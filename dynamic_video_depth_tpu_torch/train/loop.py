@@ -26,7 +26,8 @@ runs from the previous step's end event, data waits included, and
 
 With ``--profile_dir`` epoch ``min(2, --epoch)`` runs under
 ``runtime.profiling.trace_if`` (``<profile_dir>/trace.json``); the data
-wait, the step and the log flush are named spans there. A validation pass
+wait, the step (with the step's own spans inside it) and the log flush
+are named spans there. A validation pass
 follows each epoch, and its logs with the epoch's wall time go to the
 loggers' ``on_epoch_end``. ``visualize_fn`` sees every train batch after
 its step and every validation frame with its prediction.

@@ -35,6 +35,14 @@ same names). ``auto`` turns both on for a CUDA device and off on the CPU;
 
 The gap (``steps``) is a plain Python int and ``warm`` a plain bool: PyTorch
 runs eagerly, so nothing is specialized or bucketed per value.
+
+Under a profiler a training step opens these spans
+(``runtime.profiling.annotate``), each once: ``dvd/loss`` around the
+forward and the losses, holding ``dvd/depth_net`` (the depth forward over
+both frames, the bfloat16 casts included) and ``dvd/field`` (every field
+evaluation); then ``dvd/backward`` and ``dvd/optim`` (the optimizers'
+``step``). Validation's field query opens ``dvd/field`` too, outside any
+step.
 """
 
 from __future__ import annotations
@@ -52,6 +60,7 @@ from ..ops import (Camera, backward_warp, camera_to_world, depth_warp_stage,
                    projection_stage, unproject, unproject_camera)
 from ..ops.cuda.loss_kernel import pack_camera, projection_loss
 from ..runtime.device import resolve_device
+from ..runtime.profiling import annotate
 from .losses import (LossConfig, acceleration_reg, consistency_sums,
                      disparity_vali_loss, masked_means)
 
@@ -239,19 +248,20 @@ class SceneFlowMotionFieldStep:
         second, phantom evaluation advects without accumulating. Two or
         more evaluations run as one chain when the chain path is on."""
         n_evals = max(2, steps) if want_second else steps
-        if n_evals >= 2 and self.chain_fused:
-            return self._sf_chain(pts, ts, time_step, steps, n_evals)
-        sf_acc = torch.zeros_like(pts)
-        evals = []
-        for k in range(n_evals):
-            sf = self._apply_sf(pts, ts)
-            if len(evals) < 2:
-                evals.append(sf)
-            if k < steps:
-                sf_acc = sf_acc + sf
-            if k + 1 < n_evals:
-                pts = pts + sf
-                ts = ts + time_step
+        with annotate("dvd/field"):
+            if n_evals >= 2 and self.chain_fused:
+                return self._sf_chain(pts, ts, time_step, steps, n_evals)
+            sf_acc = torch.zeros_like(pts)
+            evals = []
+            for k in range(n_evals):
+                sf = self._apply_sf(pts, ts)
+                if len(evals) < 2:
+                    evals.append(sf)
+                if k < steps:
+                    sf_acc = sf_acc + sf
+                if k + 1 < n_evals:
+                    pts = pts + sf
+                    ts = ts + time_step
         first = evals[0] if evals else None
         second = evals[1] if len(evals) > 1 else None
         return sf_acc, first, second
@@ -273,7 +283,7 @@ class SceneFlowMotionFieldStep:
     def _depths(self, batch, depth_grad: bool):
         """One depth forward over both frames: ``(depth_1, depth_2)``."""
         b = batch["img_1"].shape[0]
-        with torch.set_grad_enabled(depth_grad):
+        with annotate("dvd/depth_net"), torch.set_grad_enabled(depth_grad):
             depths = self._apply_depth(
                 torch.cat([batch["img_1"], batch["img_2"]], dim=0))
         return depths[:b], depths[b:]
@@ -368,9 +378,11 @@ class SceneFlowMotionFieldStep:
         batch's values."""
         for opt in self.optimizers:
             opt.zero_grad(set_to_none=True)
-        total, logs = self.loss_and_logs(batch, int(steps), bool(warm),
-                                         reduce)
-        total.backward()
+        with annotate("dvd/loss"):
+            total, logs = self.loss_and_logs(batch, int(steps), bool(warm),
+                                             reduce)
+        with annotate("dvd/backward"):
+            total.backward()
         if reduce is not None:
             self._reduce_grads(reduce)
             keys = sorted(logs)
@@ -378,8 +390,9 @@ class SceneFlowMotionFieldStep:
             logs = dict(zip(keys, summed.unbind()))
         if self.cfg.log_grad_stats:
             logs.update(self.grad_stats())
-        for opt in self.optimizers:
-            opt.step()
+        with annotate("dvd/optim"):
+            for opt in self.optimizers:
+                opt.step()
         return {k: v.detach() for k, v in logs.items()}
 
     def _reduce_grads(self, reduce: Reduce) -> None:

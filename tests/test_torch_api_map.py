@@ -66,6 +66,9 @@ EXCLUDED = {
     "data/prefetch.py::FleetBatchCache": "a DeviceCache per rank "
                                          "(train/fleet.py)",
     "ops/pallas/*::*": "Pallas kernels; ops/cuda/ + csrc/",
+    "runtime/profiling.py::StepTimer": "nothing in the port reads a "
+                                       "wall-clock EMA; the loop's CUDA "
+                                       "events time the step",
 }
 
 PORT = "dynamic_video_depth_tpu_torch/"

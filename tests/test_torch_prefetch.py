@@ -2,7 +2,7 @@
 reader thread's order, early exit and errors; the prefetcher's host/device
 split; the dataset's ``--repeat``, ``--overfit``/``--capat`` and ``--cache``
 samples bit for bit; gap bucketing; the device cache; ``trace_if`` and
-``StepTimer``; and the trainer's data path: cached and streaming runs give
+``annotate``; and the trainer's data path: cached and streaming runs give
 the same losses bit for bit and visit the JAX trainer's pairs, the
 pipelined logs reach the loggers complete and in order, a NaN stops the run
 within ``LOG_PIPELINE_DEPTH`` steps, and ``--profile_dir`` traces epoch
@@ -228,21 +228,17 @@ def test_trace_if_writes_a_trace(tmp_path):
     assert not os.path.exists(tmp_path / "prof2")
 
 
-def test_step_timer_matches_jax(monkeypatch):
-    from dynamic_video_depth_tpu.runtime import profiling as jax_profiling
+def test_annotate_off_builds_no_record_function(monkeypatch):
+    """With no profiler active a span is the one shared null context."""
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) with no profiler")
 
-    ticks = [0.0, 0.5, 1.0, 1.25, 3.0, 3.1, 4.0, 6.0]
-    timers = []
-    for mod in (profiling, jax_profiling):
-        clock = iter(ticks)
-        monkeypatch.setattr(mod.time, "time", lambda: next(clock))
-        t, dts = mod.StepTimer(ema=0.8), []
-        for _ in range(len(ticks) // 2):
-            t.tic()
-            dts.append(t.toc())
-        timers.append((dts, t.avg))
-        monkeypatch.undo()
-    assert timers[0] == timers[1]
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    assert not torch.autograd._profiler_enabled()
+    a, b = profiling.annotate("dvd/a"), profiling.annotate("dvd/b")
+    assert a is b
+    with a, b:
+        pass
 
 
 # ------------------------------------------------------------ the trainer
@@ -472,7 +468,79 @@ def test_profile_dir_traces_one_epoch(root, tmp_path, monkeypatch, epochs,
     trainer.train()
     assert calls == [e == traced for e in range(1, epochs + 1)]
     with open(os.path.join(prof, profiling.TRACE_NAME)) as f:
-        names = [e.get("name") for e in json.load(f)["traceEvents"]]
-    assert names.count("dvd/step") == 3
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name") for e in events]
     assert names.count("dvd/data_wait") == 3
     assert names.count("dvd/log_flush") == 3
+    spans = sorted(((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                     e["name"]) for e in events if e.get("ph") == "X"
+                    and str(e.get("name")).startswith("dvd/")),
+                   key=lambda s: (s[0], -s[1]))
+    steps = [s for s in spans if s[2] == "dvd/step"]
+    assert len(steps) == 3
+    for a, b, _ in steps:
+        inner = {n: (s, e) for s, e, n in spans if a <= s and e <= b
+                 and n != "dvd/step"}
+        assert [n for s, e, n in spans if a <= s and e <= b] == [
+            "dvd/step", "dvd/loss", "dvd/depth_net", "dvd/field",
+            "dvd/backward", "dvd/optim"]
+        loss = inner["dvd/loss"]
+        for n in ("dvd/depth_net", "dvd/field"):
+            assert loss[0] <= inner[n][0] and inner[n][1] <= loss[1]
+        assert inner["dvd/depth_net"][1] <= inner["dvd/field"][0]
+        assert loss[1] <= inner["dvd/backward"][0]
+        assert inner["dvd/backward"][1] <= inner["dvd/optim"][0]
+
+
+@pytest.fixture(scope="module")
+def gaps_root(tmp_path_factory):
+    r = str(tmp_path_factory.mktemp("gaps"))
+    make_track(r, track="dog", n_frames=12, h=16, w=24, gaps=(1, 2, 4, 6, 8))
+    return r
+
+
+@pytest.mark.parametrize("gap", [1, 2, 4, 6, 8])
+def test_step_runs_the_work_the_benchmark_counts(gaps_root, tmp_path, gap):
+    """A main step queries the field ``max(2, gap)`` times at every point,
+    the evaluations that ``benchmark/workcount.py::field_work`` counts, and
+    runs the depth net once on 2 x batch frames, the images that
+    ``benchmark/harness.py::depth_work`` counts."""
+    batch, h, w = 2, 16, 24
+    trainer = cli.build_trainer(FLAGS + [
+        "--data_root", gaps_root, "--gaps", str(gap), "--epoch", "2",
+        "--batch_size", str(batch), "--epoch_batches", "2",
+        "--logdir", str(tmp_path / "run")])
+    st = trainer.step
+    assert not st.chain_fused  # one ``_apply_sf`` call an evaluation
+    steps_seen = []  # a training step's gap, warm, field and depth inputs
+    inside = []      # non-empty while a training step runs
+    train_step, apply_sf, apply_depth = (st.train_step, st._apply_sf,
+                                         st._apply_depth)
+
+    def counted_step(batch, steps, warm, **kw):
+        steps_seen.append((steps, warm, [], []))
+        inside.append(True)
+        try:
+            return train_step(batch, steps=steps, warm=warm, **kw)
+        finally:
+            inside.pop()
+
+    def counted_sf(pts, ts):
+        if inside:
+            steps_seen[-1][2].append(tuple(pts.shape[:-1]))
+        return apply_sf(pts, ts)
+
+    def counted_depth(img):
+        if inside:
+            steps_seen[-1][3].append(tuple(img.shape))
+        return apply_depth(img)
+
+    st.train_step, st._apply_sf, st._apply_depth = (counted_step, counted_sf,
+                                                    counted_depth)
+    trainer.train()
+    main = [r for r in steps_seen if not r[1]]
+    assert len(main) == 2
+    for steps, _, queries, depths in main:
+        assert steps == gap
+        assert queries == [(batch, h, w)] * max(2, gap)
+        assert depths == [(2 * batch, h, w, 3)]
