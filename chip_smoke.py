@@ -2,8 +2,9 @@
 """Smoke test of the PyTorch + CUDA port on one GPU.
 
 Run from the repo root with no arguments: ``python3 chip_smoke.py``.
-``--only {warp,loss,corr} [--repo <checkout>]`` builds and times one kernel
-family alone, phase 2's lines for it (kernel A, kernel D, the lookup), for
+``--only {warp,loss,corr,mlp} [--repo <checkout>]`` builds and times one
+kernel family alone, phase 2's lines for it (kernel A, kernel D, the
+lookup, or kernels B, C and fused_mlp, which share their tiles), for
 the package of another checkout too (a before/after on one card), and
 prints no result; ``--warp_only`` is ``--only warp``.
 
@@ -15,10 +16,9 @@ prints no result; ``--warp_only`` is ``--only warp``.
    channels (the depth warp) and 3 (the fused loss's point warp), at the
    synthetic track's gap-2 and gap-8 flows and at random +-60 px flows,
    with the host time of 1,000 calls (``[host]``); the embedded MLP (B) at
-   224x384; the Euler-chain backward (C) at 86,016
-   points for (n_steps, n_evals) = (1, 2), (2, 2), (4, 4) and (8, 8), the
-   chains of gaps 1, 2, 4 and 8; the projection-loss forward and backward
-   (D) at 224x384 and 320x576 in the use_disp, MiDaS, warm-up and main
+   224x384; the Euler-chain backward (C) at 86,016 points for (n_steps,
+   n_evals) = (1, 2), (2, 2), (4, 4), (6, 6) and (8, 8), the chains of gaps
+   1, 2, 4, 6 and 8; the projection-loss forward and backward (D) at 224x384 and 320x576 in the use_disp, MiDaS, warm-up and main
    configurations, at batch 2, at 37x53 and with fields 4 bytes past 16,
    with its forward's run-to-run bit identity and the host time of 1,000
    calls; the RAFT correlation lookup
@@ -229,7 +229,8 @@ run's files are removed once checked.
 Phase 1 also counts the tensor-core instructions (HMMA, HGMMA) in the two
 MLP libraries and the warp's shared atomics and global reductions with
 ``cuobjdump -sass`` where the toolkit has it, and
-measures the rate of the MLP tiles' instruction alone (``MMA_LOOP``).
+measures the rate of the weight-gradient pass's instruction alone
+(``MMA_LOOP``).
 Phase 2's gradient checks of the MLP kernels (``mlp_bwd``, ``chain_bwd``,
 ``dense_bwd``) zero the cotangents of the points whose hidden
 pre-activations lie within roundoff of 0 (``flip_points``: there two right
@@ -280,7 +281,8 @@ TOL = {"warp_fwd": 1e-6, "warp_bwd": 1e-5, "mlp_fwd": 1e-4, "mlp_bwd": 1e-5,
        "chain_fwd": 1e-5, "chain_bwd": 1e-5, "loss_fwd": 1e-5,
        "loss_bwd": 1e-5, "dense_fwd": 1e-4, "dense_bwd": 1e-5,
        "corr_lookup": 1e-6}
-CHAINS = ((1, 2), (2, 2), (4, 4), (8, 8))  # (n_steps, n_evals) of gaps 1-8
+CHAINS = ((1, 2), (2, 2), (4, 4), (6, 6), (8, 8))  # (n_steps, n_evals)
+# of gaps 1, 2, 4, 6 and 8
 # the largest shapes the bench (tools/bench.py) gives the kernels, (batch,
 # h, w): batch 16 at 224x384 (its batch legs) and 320x576 (--wide); phase 2
 # checks A-D there too, the chain at these of CHAINS: (2, 2), which every
@@ -343,8 +345,9 @@ RAFT_LEVELS, RAFT_RADIUS = 4, 4
 # the synthetic raw track of the preprocessing phase (multiples of 32 for
 # MiDaS at the raw resolution)
 RAW_FRAMES, RAW_HW, PRE_GAPS = 8, (448, 768), (1, 2, 4)
-# the ceiling of the instruction the MLP tiles use: a loop of TF32
-# mma.sync.m16n8k8 on register operands, 16 independent accumulators a warp,
+# the ceiling of the instruction the MLP weight-gradient pass uses: a loop
+# of TF32 mma.sync.m16n8k8 on register operands, 16 independent
+# accumulators a warp,
 # 4 blocks of 512 threads per SM; prints TFLOP/s
 MMA_LOOP = r"""
 #include <cstdio>
@@ -3890,10 +3893,22 @@ def phase_bench(dev, card: str, checked: set, shapes: set) -> dict:
     return variants
 
 
+def phase_mlp(dev, results: dict) -> None:
+    """Phase 2's lines for the tiles that kernels B, C and fused_mlp share:
+    B, then C, then the dense stack."""
+    from dynamic_video_depth_tpu_torch.ops.cuda import chain_kernel
+
+    phase_build([chain_kernel])
+    phase_kernel_b(dev, results)
+    phase_kernel_c(dev, results)
+    phase_dense(dev, results)
+
+
 # --only: the kernel family's module and phase
 ONLY = {"warp": ("warp_kernel", phase_kernel_a),
         "loss": ("loss_kernel", phase_kernel_d),
-        "corr": ("corr_kernel", phase_lookup)}
+        "corr": ("corr_kernel", phase_lookup),
+        "mlp": ("mlp_kernel", phase_mlp)}
 
 
 def main() -> None:

@@ -35,10 +35,13 @@
 // the 67 TFLOP/s of float32 FMAs, 0.93 ms on the tensor cores at float32
 // accuracy (3xTF32 at 495 TFLOP/s); the per-point carries are 7 floats of
 // device memory. The design runs on kernel B's tiles (mlp_tile.cuh):
-// 3xTF32 warp MMAs on 128-point tiles, the weights packed once per
-// backward and streamed through a TMA-fed ring, the dW pass on the same
-// MMAs. The shared memory per block is kernel B's plus the tile's staged
-// p_k, t_k.
+// 3xTF32 warpgroup products (wgmma) on 128-point tiles, the weights packed
+// once per backward and streamed through a TMA-fed ring; the dW pass is
+// 3xTF32 mma.sync. It reaches 20-21% of the 3xTF32 bound at 86,016 points
+// and 24.5% at 1,376,256 (PERF.md's kernel table): the point kernel is
+// about 0.64 of the time and the dW pass, unchanged, 0.35. The shared
+// memory per block is kernel B's; the tile's staged p_k, t_k sit in its
+// activation rows' padding.
 
 #include "mlp_tile.cuh"
 
@@ -60,15 +63,15 @@ struct Chain {
   float sf_div;
 };
 
-// kernel B's shared memory, then the tile's p_k, t_k
-constexpr size_t kChainSmem = kPointSmem + sizeof(float) * 4 * kTile;
+// The tile's p_k, t_k (x, y, z, t) sit in the padding columns of its rows
+// of Xs, past every layer's width.
+constexpr int kPkCol = kMaxWidth;
 
-struct ChainEmbed {  // features of the staged p_k, t_k (Ps [kTile][4])
+struct ChainEmbed {  // features of the staged p_k, t_k of row X
   const float* consts;
-  const float* Ps;
   int C0;
-  __device__ float operator()(int, int p, int c) const {
-    const float* P = Ps + 4 * p;
+  __device__ float operator()(int64_t, const float* X, int c) const {
+    const float* P = X + kPkCol;
     return embed_feature(consts, C0, c, P[0], P[1], P[2], P[3]);
   }
 };
@@ -81,69 +84,66 @@ __global__ void __launch_bounds__(kThreads, 1)
                      const __grid_constant__ Scratch s,
                      const __grid_constant__ Chain c, int N, int chunk) {
   extern __shared__ float4 smem[];
-  float* Xs = (float*)(smem + kStages * kStageF4);
-  uint64_t* bars = (uint64_t*)(Xs + kTile * kLdx);
-  float* Ps = (float*)(bars + 2);  // [kTile][4]: x, y, z, t_k
-  Ring ring = make_ring(smem, bars);
-  const int tid = threadIdx.x;
-  const int C0 = m.din[0];
+  Tile t = make_tile(smem);
   const Range r = block_range(N, chunk);
-  for (int p0 = r.begin; p0 < r.end; p0 += kTile) {
-    const int end = r.end, rows = min(kTile, end - p0);
-    const int mts = row_tiles(rows);
-    __syncthreads();  // the last tile is done with Xs, Ps and the ring
-    start_walk(rec, ring);
-    if (tid < kTile) {
-      const int gp = p0 + tid;
-      float x0 = 0.f, x1 = 0.f, x2 = 0.f, t = 0.f;
-      if (gp < end) {
-        x0 = c.p[3 * (int64_t)gp];
-        x1 = c.p[3 * (int64_t)gp + 1];
-        x2 = c.p[3 * (int64_t)gp + 2];
-        t = c.t0[gp];
+  if (producer(r.begin, r.end, rec, &bw, t.ring)) return;
+  const int lane = threadIdx.x & 31;
+  const int C0 = m.din[0], end = r.end;
+  for (int p0 = r.begin; p0 < end; p0 += kTile) {
+    const Place w = warp_place(t, p0, min(kTile, end - p0));
+    if (lane < 16) {
+      const int64_t gp = w.pw0 + lane;
+      float x0 = 0.f, x1 = 0.f, x2 = 0.f, tk = 0.f;
+      if (lane < w.rows) {
+        x0 = c.p[3 * gp];
+        x1 = c.p[3 * gp + 1];
+        x2 = c.p[3 * gp + 2];
+        tk = c.t0[gp];
         const float d = c.dt[gp];
-        for (int j = 0; j < c.k; ++j) t = __fadd_rn(t, d);
+        for (int j = 0; j < c.k; ++j) tk = __fadd_rn(tk, d);
       }
-      Ps[4 * tid] = x0;
-      Ps[4 * tid + 1] = x1;
-      Ps[4 * tid + 2] = x2;
-      Ps[4 * tid + 3] = t;
+      float* P = w.Xw + lane * kLdx + kPkCol;
+      P[0] = x0;
+      P[1] = x1;
+      P[2] = x2;
+      P[3] = tk;
     }
-    __syncthreads();
-    feature_tile(C0, p0, end, Xs, s.A[0], ChainEmbed{consts, Ps, C0});
-    forward_layers(m, rec, Xs, ring, &s, nullptr, p0, rows, mts);
+    __syncwarp();
+    feature_rows(C0, w.pw0, end, w.Xw, s.A[0], ChainEmbed{consts, C0});
+    forward_layers(m, rec, w.Xw, w.Sw, t.ring, &s, nullptr, w.pw0, w.rows,
+                   w.active);
 
     // dZ_{L-1} = g = fbar / sf_div (the field's output is 3 wide)
-    __syncthreads();  // the features are written (also with no hidden layer)
-    start_walk(bw, ring);
-    load_grad(m, s, Xs, p0, end, [&](int gp, int n) {
-      const int64_t i = 3 * (int64_t)gp + n;
+    load_grad(m, s, w.Xw, w.pw0, end, [&](int64_t gp, int n) {
+      const int64_t i = 3 * gp + n;
       float f = c.advanced ? c.pbar[i] : 0.0f;
       if (c.in_acc) f = f + c.gacc[i];
       if (c.k == 0) f = f + c.g0[i];
       if (c.k == 1) f = f + c.g1[i];
       return f / c.sf_div;
     });
-    backward_layers(m, bw, s, Xs, ring, p0, rows, mts);
+    backward_layers(m, bw, s, w.Xw, w.Sw, t.ring, w.pw0, w.rows, w.active);
 
-    const int p = tid >> 2, q = tid & 3;
-    const int gp = p0 + p;
-    const float* P = Ps + 4 * p;
-    float d[4];
-    embed_grad(consts, C0, Xs + p * kLdx, q, P[0], P[1], P[2], P[3], d);
-    if (q == 0 && gp < end) {
-      const int64_t i = 3 * (int64_t)gp;
-      if (c.advanced) {
-        c.ddt[gp] = c.ddt[gp] + c.tbar[gp];
-        c.pbar[i] = c.pbar[i] + d[0];
-        c.pbar[i + 1] = c.pbar[i + 1] + d[1];
-        c.pbar[i + 2] = c.pbar[i + 2] + d[2];
-        c.tbar[gp] = c.tbar[gp] + d[3];
-      } else {
-        c.pbar[i] = d[0];
-        c.pbar[i + 1] = d[1];
-        c.pbar[i + 2] = d[2];
-        c.tbar[gp] = d[3];
+    for (int half = 0; half < 2; ++half) {
+      const int p = 8 * half + (lane >> 2), q = lane & 3;
+      const int64_t gp = w.pw0 + p;
+      const float* P = w.Xw + p * kLdx + kPkCol;
+      float d[4];
+      embed_grad(consts, C0, w.Xw + p * kLdx, q, P[0], P[1], P[2], P[3], d);
+      if (q == 0 && p < w.rows) {
+        const int64_t i = 3 * gp;
+        if (c.advanced) {
+          c.ddt[gp] = c.ddt[gp] + c.tbar[gp];
+          c.pbar[i] = c.pbar[i] + d[0];
+          c.pbar[i + 1] = c.pbar[i + 1] + d[1];
+          c.pbar[i + 2] = c.pbar[i + 2] + d[2];
+          c.tbar[gp] = c.tbar[gp] + d[3];
+        } else {
+          c.pbar[i] = d[0];
+          c.pbar[i + 1] = d[1];
+          c.pbar[i + 2] = d[2];
+          c.tbar[gp] = d[3];
+        }
       }
     }
   }
@@ -171,7 +171,7 @@ int dvd_chain_bwd(const float* pts, const float* stash, const float* ts,
   if (!valid(m, dims[0]) || dims[L] != 3 || S < 1 || n_evals < 1 ||
       n_steps < 0 || n_steps > n_evals)
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = allow_smem((const void*)chain_bwd_points, kChainSmem);
+  cudaError_t e = allow_smem((const void*)chain_bwd_points, kPointSmem);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
   if (N == 0) return (int)zero_grads(dims, L, dW, db, st);
@@ -198,7 +198,7 @@ int dvd_chain_bwd(const float* pts, const float* stash, const float* ts,
     c.p = k == 0 ? pts : stash + (int64_t)(k - 1) * N * 3;
     c.advanced = k + 1 < n_evals;
     c.in_acc = k < n_steps;
-    chain_bwd_points<<<grid, kThreads, kChainSmem, st>>>(consts, m, rec, bw,
+    chain_bwd_points<<<grid, kThreads, kPointSmem, st>>>(consts, m, rec, bw,
                                                          s, c, N, chunk);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;

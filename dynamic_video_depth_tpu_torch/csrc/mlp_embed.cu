@@ -13,13 +13,17 @@
 // about 51 GFLOP of matrix products, so it is bound by arithmetic: 0.76 ms
 // at the 67 TFLOP/s of float32 FMAs, or 0.31 ms on the tensor cores at
 // float32 accuracy (3xTF32: three TF32 products per float32 product at 495
-// TFLOP/s). The design (mlp_tile.cuh) takes the tensor cores: 3xTF32 warp
-// MMAs on 128-point tiles whose activations stay in shared memory, the
-// weights packed once per launch (hi/lo split, zero-padded to multiples of
-// 8) and streamed through a 4-slot ring by bulk async copies (TMA) across
-// the layers. The
-// TPU kept all weights (about 1.2 MB) resident in VMEM; here every block
-// streams them from L2 (2.4 MB packed per walk).
+// TFLOP/s). The design (mlp_tile.cuh) takes the tensor cores: 3xTF32
+// warpgroup products (wgmma) on 128-point tiles whose activations stay in
+// shared memory, the weights packed once per launch (hi/lo split,
+// zero-padded to multiples of 8) and streamed through a 4-slot ring by
+// bulk async copies (TMA) across the layers. It reaches 23% of the 3xTF32
+// bound at 86,016 points and 29% at 1,376,256 (the forward; the mma.sync
+// tiles before it 20-22%, PERF.md's kernel table): each warpgroup waits
+// for its products before it promotes them, so the tensor cores idle
+// while the two warpgroups promote. The TPU kept all weights (about 1.2 MB)
+// resident in VMEM; here every block streams them from L2 (2.4 MB packed
+// per walk).
 //
 // Backward. The TPU summed dW and db across its sequential grid; a CUDA grid
 // runs in no order, so that carry is replaced by a scheme that is
@@ -53,18 +57,17 @@ struct Embed {
   const float* ts;      // [N]
   const float* consts;  // [7, C0]
   int C0;
-  __device__ float operator()(int gp, int, int c) const {
-    return embed_feature(consts, C0, c, pts[3 * (int64_t)gp],
-                         pts[3 * (int64_t)gp + 1], pts[3 * (int64_t)gp + 2],
-                         ts[gp]);
+  __device__ float operator()(int64_t gp, const float*, int c) const {
+    return embed_feature(consts, C0, c, pts[3 * gp], pts[3 * gp + 1],
+                         pts[3 * gp + 2], ts[gp]);
   }
 };
 
 struct Rows {  // feature c of point gp from a row-major [N, C0] array
   const float* x;
   int C0;
-  __device__ float operator()(int gp, int, int c) const {
-    return x[(int64_t)gp * C0 + c];
+  __device__ float operator()(int64_t gp, const float*, int c) const {
+    return x[gp * C0 + c];
   }
 };
 
@@ -74,36 +77,32 @@ __device__ __forceinline__ void forward_tiles(const Mlp& m, const Walk& fw,
                                               Feature feature, float* out,
                                               int N, int chunk) {
   extern __shared__ float4 smem[];
-  float* Xs = (float*)(smem + kStages * kStageF4);
-  Ring ring = make_ring(smem, (uint64_t*)(Xs + kTile * kLdx));
+  Tile t = make_tile(smem);
   const Range r = block_range(N, chunk);
+  if (producer(r.begin, r.end, fw, nullptr, t.ring)) return;
   for (int p0 = r.begin; p0 < r.end; p0 += kTile) {
-    __syncthreads();  // the last tile is done with Xs and the ring
-    start_walk(fw, ring);
-    feature_tile(m.din[0], p0, r.end, Xs, nullptr, feature);
-    const int rows = min(kTile, r.end - p0);
-    forward_layers(m, fw, Xs, ring, nullptr, out, p0, rows, row_tiles(rows));
+    const Place w = warp_place(t, p0, min(kTile, r.end - p0));
+    feature_rows(m.din[0], w.pw0, r.end, w.Xw, nullptr, feature);
+    forward_layers(m, fw, w.Xw, w.Sw, t.ring, nullptr, out, w.pw0, w.rows,
+                   w.active);
   }
 }
 
-// For the tile at p0 of a range ending at `end`: recompute (storing A_l),
-// then walk back from dZ_{L-1} = grad(gp, n); leaves the gradient at the
-// features in Xs.
+// For this warp's rows of a tile of a range ending at `end`: recompute
+// (storing A_l), then walk back from dZ_{L-1} = grad(gp, n); leaves the
+// gradient at the features in the warp's rows of Xs.
 template <typename Feature, typename Grad>
-__device__ __forceinline__ void backward_tile(const Mlp& m, const Walk& rec,
+__device__ __forceinline__ void backward_rows(const Mlp& m, const Walk& rec,
                                               const Walk& bw,
-                                              const Scratch& s, float* Xs,
-                                              Ring& ring, Feature feature,
-                                              Grad grad, int p0, int end) {
-  const int rows = min(kTile, end - p0), mts = row_tiles(rows);
-  __syncthreads();  // the last tile is done with Xs and the ring
-  start_walk(rec, ring);
-  feature_tile(m.din[0], p0, end, Xs, s.A[0], feature);
-  forward_layers(m, rec, Xs, ring, &s, nullptr, p0, rows, mts);
-  __syncthreads();  // the features are written (also with no hidden layer)
-  start_walk(bw, ring);
-  load_grad(m, s, Xs, p0, end, grad);
-  backward_layers(m, bw, s, Xs, ring, p0, rows, mts);
+                                              const Scratch& s,
+                                              const Place& w, Ring& ring,
+                                              Feature feature, Grad grad,
+                                              int end) {
+  feature_rows(m.din[0], w.pw0, end, w.Xw, s.A[0], feature);
+  forward_layers(m, rec, w.Xw, w.Sw, ring, &s, nullptr, w.pw0, w.rows,
+                 w.active);
+  load_grad(m, s, w.Xw, w.pw0, end, grad);
+  backward_layers(m, bw, s, w.Xw, w.Sw, ring, w.pw0, w.rows, w.active);
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -125,30 +124,34 @@ __global__ void __launch_bounds__(kThreads, 1)
                    const float* __restrict__ g, float* __restrict__ dpts,
                    float* __restrict__ dts, int N, int chunk) {
   extern __shared__ float4 smem[];
-  float* Xs = (float*)(smem + kStages * kStageF4);
-  Ring ring = make_ring(smem, (uint64_t*)(Xs + kTile * kLdx));
-  const int C0 = m.din[0], no = m.dout[m.L - 1];
+  Tile t = make_tile(smem);
   const Range r = block_range(N, chunk);
+  if (producer(r.begin, r.end, rec, &bw, t.ring)) return;
+  const int C0 = m.din[0], no = m.dout[m.L - 1];
+  const int lane = threadIdx.x & 31;
   for (int p0 = r.begin; p0 < r.end; p0 += kTile) {
-    backward_tile(
-        m, rec, bw, s, Xs, ring, Embed{pts, ts, consts, C0},
-        [&](int gp, int n) { return g[(int64_t)gp * no + n]; }, p0, r.end);
-    const int p = threadIdx.x >> 2, q = threadIdx.x & 3;
-    const int gp = p0 + p;
-    float x0 = 0.f, x1 = 0.f, x2 = 0.f, t = 0.f;
-    if (gp < r.end) {
-      x0 = pts[3 * (int64_t)gp];
-      x1 = pts[3 * (int64_t)gp + 1];
-      x2 = pts[3 * (int64_t)gp + 2];
-      t = ts[gp];
-    }
-    float d[4];
-    embed_grad(consts, C0, Xs + p * kLdx, q, x0, x1, x2, t, d);
-    if (q == 0 && gp < r.end) {
-      dpts[3 * (int64_t)gp] = d[0];
-      dpts[3 * (int64_t)gp + 1] = d[1];
-      dpts[3 * (int64_t)gp + 2] = d[2];
-      dts[gp] = d[3];
+    const Place w = warp_place(t, p0, min(kTile, r.end - p0));
+    backward_rows(
+        m, rec, bw, s, w, t.ring, Embed{pts, ts, consts, C0},
+        [&](int64_t gp, int n) { return g[gp * no + n]; }, r.end);
+    for (int half = 0; half < 2; ++half) {
+      const int p = 8 * half + (lane >> 2), q = lane & 3;
+      const int64_t gp = w.pw0 + p;
+      float x0 = 0.f, x1 = 0.f, x2 = 0.f, tt = 0.f;
+      if (p < w.rows) {
+        x0 = pts[3 * gp];
+        x1 = pts[3 * gp + 1];
+        x2 = pts[3 * gp + 2];
+        tt = ts[gp];
+      }
+      float d[4];
+      embed_grad(consts, C0, w.Xw + p * kLdx, q, x0, x1, x2, tt, d);
+      if (q == 0 && p < w.rows) {
+        dpts[3 * gp] = d[0];
+        dpts[3 * gp + 1] = d[1];
+        dpts[3 * gp + 2] = d[2];
+        dts[gp] = d[3];
+      }
     }
   }
 }
@@ -173,18 +176,18 @@ __global__ void __launch_bounds__(kThreads, 1)
                      const float* __restrict__ g, float* __restrict__ dfeat,
                      int N, int chunk) {
   extern __shared__ float4 smem[];
-  float* Xs = (float*)(smem + kStages * kStageF4);
-  Ring ring = make_ring(smem, (uint64_t*)(Xs + kTile * kLdx));
-  const int C0 = m.din[0], no = m.dout[m.L - 1];
+  Tile t = make_tile(smem);
   const Range r = block_range(N, chunk);
+  if (producer(r.begin, r.end, rec, &bw, t.ring)) return;
+  const int C0 = m.din[0], no = m.dout[m.L - 1];
   for (int p0 = r.begin; p0 < r.end; p0 += kTile) {
-    backward_tile(
-        m, rec, bw, s, Xs, ring, Rows{feat, C0},
-        [&](int gp, int n) { return g[(int64_t)gp * no + n]; }, p0, r.end);
-    for (int e = threadIdx.x; e < kTile * C0; e += kThreads) {
+    const Place w = warp_place(t, p0, min(kTile, r.end - p0));
+    backward_rows(
+        m, rec, bw, s, w, t.ring, Rows{feat, C0},
+        [&](int64_t gp, int n) { return g[gp * no + n]; }, r.end);
+    for (int e = threadIdx.x & 31; e < w.rows * C0; e += 32) {
       const int p = e / C0, c = e - p * C0;
-      if (p0 + p < r.end)
-        dfeat[(int64_t)(p0 + p) * C0 + c] = Xs[p * kLdx + c];
+      dfeat[(w.pw0 + p) * C0 + c] = w.Xw[p * kLdx + c];
     }
   }
 }

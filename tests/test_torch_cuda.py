@@ -201,7 +201,8 @@ def _chain_inputs(dev, n, n_evals):
 
 @pytest.mark.parametrize("n,n_steps,n_evals", [
     (86016, 2, 2), (86016, 8, 8), (777, 1, 2), (777, 3, 4), (86016, 1, 2),
-    (86016, 4, 4), (1, 1, 2), (63, 1, 2), (65, 1, 2), (129, 1, 2)])
+    (86016, 4, 4), (1, 1, 2), (63, 1, 2), (65, 1, 2), (129, 1, 2),
+    (86016, 6, 6)])
 def test_chain_kernel_matches_plain(dev, n, n_steps, n_evals):
     ws, bs, pts, ts, dt, gs = _chain_inputs(dev, n, n_evals)
     gs = zero_rows(flip_points(chain_features(

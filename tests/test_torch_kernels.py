@@ -341,27 +341,65 @@ def _mm_tf32(a, b):
     return _tf32(a) @ _tf32(b)
 
 
+def _trunc32(x: torch.Tensor) -> torch.Tensor:
+    """float64 to float32 rounded toward zero."""
+    y = x.float()
+    return torch.where(y.double().abs() > x.abs(),
+                       torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def _mm_3xtf32_k8(a, b):
+    """3xTF32 in the point tiles' order (csrc/mlp_tile.cuh): per k8 step
+    the products lo*hi, hi*lo and hi*hi (each 8-term sum exact) go into a
+    fresh accumulator that adds by truncation, as the tensor cores do, and
+    the step's total reaches the float32 sum by one rounded add. All steps
+    at once (few, large ops)."""
+    pad = -a.shape[1] % 8
+    a = torch.nn.functional.pad(a, (0, pad))
+    b = torch.nn.functional.pad(b, (0, 0, 0, pad))
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+
+    def steps(x, y):  # [k8 steps, M, N]: each step's exact products
+        return (x.double().unflatten(1, (-1, 8)).transpose(0, 1)
+                @ y.double().unflatten(0, (-1, 8)))
+
+    t = _trunc32(steps(al, bh))
+    t = _trunc32(t.double() + steps(ah, bl))
+    t = _trunc32(t.double() + steps(ah, bh))
+    out = torch.zeros(a.shape[0], b.shape[1])
+    for step in t:
+        out = out + step
+    return out
+
+
+# the products of the point tiles (forward, dX) and of the dW pass
+MM = {"3xtf32": (_mm_3xtf32, _mm_3xtf32), "tf32": (_mm_tf32, _mm_tf32),
+      "3xtf32_k8": (_mm_3xtf32_k8, _mm_3xtf32)}
+
+
 class _EmuLinear(torch.autograd.Function):
-    """``x W^T + b`` whose three products (forward, dX, dW) all run in the
-    given emulated arithmetic, as the kernels run them."""
+    """``x W^T + b`` whose three products run in the given emulated
+    arithmetic, as the kernels run them: the forward and dX in ``mm`` (the
+    point tiles), dW in ``mm_dw`` (the weight-gradient pass)."""
 
     @staticmethod
-    def forward(ctx, x, w, b, mm):
+    def forward(ctx, x, w, b, mm, mm_dw):
         ctx.save_for_backward(x, w)
-        ctx.mm = mm
+        ctx.mm, ctx.mm_dw = mm, mm_dw
         return mm(x, w.t()) + b
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        return ctx.mm(g, w), ctx.mm(g.t(), x), g.sum(0), None
+        return ctx.mm(g, w), ctx.mm_dw(g.t(), x), g.sum(0), None, None
 
 
-def _emu_field(mm):
+def _emu_field(mm, mm_dw=None):
     def field(pts, ts, weights, biases, nfx, nft, td):
         h = embedding.sceneflow_features(pts, ts, nfx, nft, td)
         for i, (w, b) in enumerate(zip(weights, biases)):
-            h = _EmuLinear.apply(h, w, b, mm)
+            h = _EmuLinear.apply(h, w, b, mm, mm_dw or mm)
             if i < len(weights) - 1:
                 h = torch.where(h >= 0, h, 0.2 * h)
         return h
@@ -376,12 +414,15 @@ def _max_rel(a, b) -> float:
 EMU_DIMS = [132, 256, 256, 256, 256, 256, 3]
 
 
-@pytest.mark.parametrize("arith", ["3xtf32", "tf32"])
+@pytest.mark.parametrize("arith", ["3xtf32", "tf32", "3xtf32_k8"])
 def test_tf32_split_emulation_matches_pallas_mlp(rng, arith):
     """The embedded MLP at the canonical widths, N = 2048, every product in
     emulated 3xTF32, against fused_mlp_embed: forward within 1e-4 and every
     gradient within 1e-5 of max |ref| (the card checks' tolerances, with
-    their flip mask). Single-pass TF32 must miss the gradient tolerance."""
+    their flip mask), also in the point tiles' order (a truncating
+    accumulator per k8 step, promoted by a rounded add,
+    ``_mm_3xtf32_k8``, for the forward and dX). Single-pass TF32 must miss
+    the gradient tolerance."""
     n = 2048
     pts = rng.randn(n, 3).astype(np.float32)
     ts = rng.rand(n, 1).astype(np.float32)
@@ -408,10 +449,11 @@ def test_tf32_split_emulation_matches_pallas_mlp(rng, arith):
                           tuple(args[3]))
     ref_grads = jax.grad(loss, argnums=(0, 1, 2, 3))(*args)
 
-    mm = _mm_3xtf32 if arith == "3xtf32" else _mm_tf32
+    mm, mm_dw = MM[arith]
     leaves = [torch.from_numpy(x).requires_grad_(True)
               for x in (pts, ts, *[w.T.copy() for w in ws], *bs)]
-    out = _emu_field(mm)(leaves[0], leaves[1], leaves[2:8], leaves[8:], 16,
+    out = _emu_field(mm, mm_dw)(leaves[0], leaves[1], leaves[2:8],
+                                leaves[8:], 16,
                          16, True)
     (out * torch.from_numpy(g)).sum().backward()
     fwd = _max_rel(out.detach(), ref)
@@ -421,7 +463,7 @@ def test_tf32_split_emulation_matches_pallas_mlp(rng, arith):
               for i in range(6)]
     grads += [_max_rel(leaves[8 + i].grad, ref_grads[3][i])
               for i in range(6)]
-    if arith == "3xtf32":
+    if arith != "tf32":
         assert fwd <= 1e-4
         assert max(grads) <= 1e-5, grads
     else:
@@ -433,10 +475,22 @@ def test_tf32_split_emulation_matches_pallas_chain(rng):
     N = 2048, every product in emulated 3xTF32, against
     fused_mlp_embed_chain: values within 1e-5 and every gradient within
     1e-5 of max |ref|, with the flip mask on the cotangents."""
+    _chain_emulation(rng, *MM["3xtf32"], 2, 2)
+
+
+def test_tf32_k8_promotion_emulation_matches_pallas_chain(rng):
+    """The chain as above with the point tiles' products (the recompute
+    and dX) in their order: a truncating accumulator per k8 step, promoted
+    by a rounded float32 add (``_mm_3xtf32_k8``); the same tolerances, at
+    N = 512 (the order's emulation costs ~10x the plain one)."""
+    _chain_emulation(rng, *MM["3xtf32_k8"], 2, 2, n=512)
+
+
+def _chain_emulation(rng, mm, mm_dw, n_steps, n_evals, n=2048):
     from dynamic_video_depth_tpu.ops.pallas.mlp_kernel import (
         fused_mlp_embed_chain)
 
-    n, sf_div, n_steps, n_evals = 2048, 100.0, 2, 2
+    sf_div = 100.0
     pts = np.concatenate([rng.rand(n, 2) * 2.0 - 1.0,
                           rng.rand(n, 1) * 2.0 + 2.0], 1).astype(np.float32)
     ts = rng.rand(n, 1).astype(np.float32)
@@ -465,7 +519,7 @@ def test_tf32_split_emulation_matches_pallas_chain(rng):
     ref_grads, ref = jax.grad(loss, argnums=(0, 1, 2, 3, 4),
                               has_aux=True)(*args)
 
-    field = _emu_field(_mm_3xtf32)
+    field = _emu_field(mm, mm_dw)
     leaves = [torch.from_numpy(x).requires_grad_(True)
               for x in (pts, ts, dt, *[w.T.copy() for w in ws], *bs)]
     p, t = leaves[0], leaves[1]
