@@ -5,6 +5,7 @@ library blocks and MLPs (the JAX package's ``models`` exports), and the
 import importlib
 
 from .blocks import ConvBlock, DoubleConvBlock, PeriodicEmbed, ResConv2DBlock
+from .dpt import DPTDepthNet
 from .fcn_unet import FCNUnet
 from .hourglass import HourglassModel, HourglassModelEmbed
 from .midas import MidasNet
@@ -22,7 +23,7 @@ def get_model(alias: str):
     return module.Model
 
 
-__all__ = ["ConvBlock", "DoubleConvBlock", "EmbeddedMLP", "FCNUnet",
-           "HourglassModel", "HourglassModelEmbed", "MLP", "MidasNet",
-           "PeriodicEmbed", "ResConv2DBlock", "SceneFlowFieldNet",
-           "TinyDepthNet", "get_model"]
+__all__ = ["ConvBlock", "DPTDepthNet", "DoubleConvBlock", "EmbeddedMLP",
+           "FCNUnet", "HourglassModel", "HourglassModelEmbed", "MLP",
+           "MidasNet", "PeriodicEmbed", "ResConv2DBlock",
+           "SceneFlowFieldNet", "TinyDepthNet", "get_model"]

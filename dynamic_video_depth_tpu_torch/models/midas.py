@@ -103,50 +103,66 @@ class ResNeXt101Backbone(nn.Module):
 
 
 class ResidualConvUnit(nn.Module):
-    """(reference third_party/midas_blocks.py:102-135). The skip adds
-    ``relu(x)``, not ``x``: the torch original's ``ReLU(inplace=True)``
-    overwrites ``x`` before the add, and the pretrained weights bake that
-    in."""
+    """(reference third_party/midas_blocks.py:102-135; MiDaS v3.0
+    ``ResidualConvUnit_custom``). With ``relu_skip`` the skip adds
+    ``relu(x)``, not ``x``: MiDaS v2's ``ReLU(inplace=True)`` overwrites
+    ``x`` before the add, and its pretrained weights bake that in. The DPT's
+    unit (``relu_skip=False``) has a non-inplace ReLU and adds ``x``."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, relu_skip: bool = True):
         super().__init__()
+        self.relu_skip = relu_skip
         self.conv1 = nn.Conv2d(features, features, 3, padding=1)
         self.conv2 = nn.Conv2d(features, features, 3, padding=1)
 
     def forward(self, x):
         res = torch.relu(x)
-        return self.conv2(torch.relu(self.conv1(res))) + res
+        out = self.conv2(torch.relu(self.conv1(res)))
+        return out + (res if self.relu_skip else x)
 
 
 class FeatureFusionBlock(nn.Module):
-    """(reference third_party/midas_blocks.py:138-168)"""
+    """(reference third_party/midas_blocks.py:138-168; MiDaS v3.0
+    ``FeatureFusionBlock_custom`` with ``relu_skip=False, out_conv=True``:
+    its units add ``x`` and a 1x1 ``out_conv`` follows the upsample)."""
 
-    def __init__(self, features: int, two_inputs: bool):
+    def __init__(self, features: int, two_inputs: bool,
+                 relu_skip: bool = True, out_conv: bool = False):
         super().__init__()
         if two_inputs:
-            self.resConfUnit1 = ResidualConvUnit(features)
-        self.resConfUnit2 = ResidualConvUnit(features)
+            self.resConfUnit1 = ResidualConvUnit(features, relu_skip)
+        self.resConfUnit2 = ResidualConvUnit(features, relu_skip)
+        self.out_conv = nn.Conv2d(features, features, 1) if out_conv \
+            else None
 
     def forward(self, *xs):
         out = xs[0]
         if len(xs) == 2:
             out = out + self.resConfUnit1(xs[1])
-        return upsample2x_nchw(self.resConfUnit2(out), align_corners=True)
+        out = upsample2x_nchw(self.resConfUnit2(out), align_corners=True)
+        return out if self.out_conv is None else self.out_conv(out)
 
 
 class _Upsample2x(nn.Module):
-    """The output head's bilinear 2x (align_corners=False)."""
+    """The output head's bilinear 2x."""
+
+    def __init__(self, align_corners: bool):
+        super().__init__()
+        self.align_corners = align_corners
 
     def forward(self, x):
-        return upsample2x_nchw(x, align_corners=False)
+        return upsample2x_nchw(x, align_corners=self.align_corners)
 
 
-def _output_head(features: int, last: nn.Module) -> nn.Sequential:
-    """3x3 -> 128, bilinear 2x, 3x3 -> 32, ReLU, 1x1 -> 1, ``last``: the
-    depth head (``output_conv``) and the mask head (``output_conv_mask``)."""
+def output_head(features: int, mid: int, last: nn.Module,
+                align_corners: bool = False) -> nn.Sequential:
+    """3x3 -> ``mid``, bilinear 2x, 3x3 -> 32, ReLU, 1x1 -> 1, ``last``:
+    MiDaS v2's depth head (``output_conv``, ``mid`` 128, the upsample
+    without aligned corners) and mask head (``output_conv_mask``), and the
+    DPT's depth head (``mid = features // 2``, aligned corners)."""
     return nn.Sequential(
-        nn.Conv2d(features, 128, 3, padding=1), _Upsample2x(),
-        nn.Conv2d(128, 32, 3, padding=1), nn.ReLU(),
+        nn.Conv2d(features, mid, 3, padding=1), _Upsample2x(align_corners),
+        nn.Conv2d(mid, 32, 3, padding=1), nn.ReLU(),
         nn.Conv2d(32, 1, 1), last)
 
 
@@ -162,10 +178,10 @@ class _Scratch(nn.Module):
         self.refinenet3 = FeatureFusionBlock(f, two_inputs=True)
         self.refinenet2 = FeatureFusionBlock(f, two_inputs=True)
         self.refinenet1 = FeatureFusionBlock(f, two_inputs=True)
-        self.output_conv = _output_head(
-            f, nn.ReLU() if non_negative else nn.Identity())
+        self.output_conv = output_head(
+            f, 128, nn.ReLU() if non_negative else nn.Identity())
         if mask_branch:
-            self.output_conv_mask = _output_head(f, nn.Sigmoid())
+            self.output_conv_mask = output_head(f, 128, nn.Sigmoid())
 
 
 class MidasNet(nn.Module):

@@ -173,6 +173,14 @@ DEPTH_PRETRAIN_PATH = os.environ.get(
 # 172-188).
 PRETRAINED_LEFTOVERS = ("num_batches", "refinenet4.resConfUnit1",
                         "uncertainty_layer")
+# The DPT-Large file (MiDaS v3.0 ``dpt_large``; no counterpart in the JAX
+# package), and what of it ``models/dpt.py`` does not build beside the
+# leftovers above: the ViT's final norm and classifier head, which MiDaS's
+# forward never reads.
+DPT_PRETRAIN_PATH = os.environ.get(
+    "DVD_DPT_CKPT", "./pretrained_depth_ckpt/dpt_large-midas-2f21e586.pt")
+DPT_LEFTOVERS = PRETRAINED_LEFTOVERS + ("pretrained.model.norm.",
+                                        "pretrained.model.head.")
 
 
 def _load_torch_file(path: str) -> Dict[str, torch.Tensor]:
@@ -200,21 +208,22 @@ def load_midas_checkpoint(net: nn.Module, path: str) -> nn.Module:
     return net
 
 
-def load_pretrained_depth(net: nn.Module, path: str,
-                          midas: bool) -> nn.Module:
-    """Load the pretrained MiDaS (``midas``) or hourglass depth checkpoint
-    into the trainer's depth net (JAX train/scene_flow_motion_field.py:
-    217-251). The hourglass file holds the inner net's keys, nested here
-    under ``net_depth.``. Every parameter and buffer of ``net`` (step
-    counters aside) must be in the file, and a key of the file that ``net``
-    does not consume raises unless it is one of ``PRETRAINED_LEFTOVERS``: a
+def load_pretrained_depth(net: nn.Module, path: str, midas: bool,
+                          unused=PRETRAINED_LEFTOVERS) -> nn.Module:
+    """Load the pretrained MiDaS or DPT (``midas``: the file's keys are the
+    net's) or hourglass depth checkpoint into the trainer's depth net (JAX
+    train/scene_flow_motion_field.py:217-251). The hourglass file holds the
+    inner net's keys, nested here under ``net_depth.``. Every parameter and
+    buffer of ``net`` (step counters aside) must be in the file, and a key
+    of the file that ``net`` does not consume raises unless it holds one of
+    ``unused`` (``PRETRAINED_LEFTOVERS``, the DPT's ``DPT_LEFTOVERS``): a
     weight dropped without notice would spoil every result."""
     sd = _load_torch_file(path)
     if not midas:
         sd = {"net_depth." + k: v for k, v in sd.items()}
     own = net.state_dict()
     leftovers = [k for k in sd if k not in own
-                 and not any(a in k for a in PRETRAINED_LEFTOVERS)]
+                 and not any(a in k for a in unused)]
     if leftovers:
         raise KeyError(f"depth checkpoint keys not consumed by the port "
                        f"(layout drift?): {leftovers[:5]}")

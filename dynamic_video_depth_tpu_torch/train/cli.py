@@ -20,9 +20,10 @@ command runs, its ``python test.py`` as this interpreter's
 ``-m dynamic_video_depth_tpu_torch.test`` with the run's ``--device``; the
 run fails if that command fails.
 
-The depth net is ``--depth_net`` when given, else MiDaS with ``--midas`` and
-the hourglass without; the MiDaS far-field loss masks follow the same
-choice. ``--use_pallas_sf_chain`` and ``--use_pallas_loss`` (``auto|on|off``,
+The depth net is ``--depth_net`` when given (``dpt_large`` is MiDaS v3.0's
+DPT-Large), else MiDaS with ``--midas`` and the hourglass without; the MiDaS
+far-field loss masks follow the net's family (MiDaS and the DPT).
+``--use_pallas_sf_chain`` and ``--use_pallas_loss`` (``auto|on|off``,
 the JAX names) pick the fused chain and fused loss paths: ``auto`` is on for
 ``--device cuda`` and off on the CPU, where ``on`` runs the kernels' plain
 versions. The JAX entry's variants run as there:
@@ -79,7 +80,7 @@ from ..utils.printing import set_manual_seed
 from ..utils.visualizer import HTMLVisualizer
 from .loop import Trainer, vis_index
 from .scene_flow_motion_field import numpy_dict, step_config
-from .step import FUSED_MODES, OPTIMS
+from .step import DEPTH_NETS, FUSED_MODES, OPTIMS
 
 __all__ = ["build_parser", "build_run", "build_trainer", "main",
            "step_config"]
@@ -131,8 +132,10 @@ def build_parser() -> argparse.ArgumentParser:
       help="kept for the recipe's logdir suffix; as in the JAX package, "
            "it selects nothing")
     a("--midas", action="store_true", help="MiDaS depth net and loss masks")
-    a("--depth_net", default="",
-      help="'' defers to --midas; 'midas', 'hourglass' or 'tiny' (tests)")
+    a("--depth_net", default="", choices=("",) + DEPTH_NETS,
+      help="'' defers to --midas; 'midas', 'dpt_large' (MiDaS v3.0 "
+           "DPT-Large, with the MiDaS loss masks), 'hourglass' or 'tiny' "
+           "(tests)")
     for knob in ("sf_chain", "loss"):
         a(f"--use_pallas_{knob}", choices=FUSED_MODES, default="auto",
           help="fused path: auto = on for a CUDA device, off on the CPU")

@@ -5,11 +5,13 @@ models/scene_flow_motion_field.py).
 ``Model`` builds a ``SceneFlowMotionFieldStep`` from the options (the
 flags of the JAX ``Model`` that the step reads: the optimizer, the nets and
 ``--use_cnn``, the compute dtype, ``--remat_depth``, ``--log_grad_stats``),
-loads the pretrained depth net (MiDaS with ``--midas``, else the
-hourglass; the test net ``tiny`` has none) from ``MIDAS_PRETRAIN_PATH`` /
+loads the pretrained depth net (MiDaS with ``--midas``, DPT-Large with
+``--depth_net dpt_large``, else the hourglass; the test net ``tiny`` has
+none) from ``MIDAS_PRETRAIN_PATH`` / ``DPT_PRETRAIN_PATH`` /
 ``DEPTH_PRETRAIN_PATH`` (the environment variables ``DVD_MIDAS_CKPT`` /
-``DVD_HOURGLASS_CKPT``) when the file is there, and turns the step's
-tensors into the numpy dicts that visualization and the test dumps write.
+``DVD_DPT_CKPT`` / ``DVD_HOURGLASS_CKPT``) when the file is there, and
+turns the step's tensors into the numpy dicts that visualization and the
+test dumps write.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ import torch
 
 from ..runtime import weights
 from .losses import LossConfig
-from .step import SceneFlowMotionFieldStep, TrainStepConfig, effective_depth_net
+from .step import (MIDAS_FAMILY, SceneFlowMotionFieldStep, TrainStepConfig,
+                   effective_depth_net)
 
 
 def compute_dtype(opt) -> str:
@@ -38,10 +41,12 @@ def compute_dtype(opt) -> str:
 
 
 def step_config(opt) -> TrainStepConfig:
-    """The step's configuration; the net and the loss's MiDaS masks both
-    follow ``effective_depth_net``. Options that a run's ``opt.json`` from
+    """The step's configuration; the net follows ``effective_depth_net``,
+    and the loss's MiDaS masks its family (MiDaS v2 and the DPT predict
+    MiDaS-style inverse depth). Options that a run's ``opt.json`` from
     before a flag existed lacks take the flag's default."""
     net = effective_depth_net(opt.depth_net, opt.midas)
+    midas = net in MIDAS_FAMILY
     return TrainStepConfig(
         optim=getattr(opt, "optim", "adam"), lr=opt.lr,
         scene_lr_mul=opt.scene_lr_mul,
@@ -49,7 +54,7 @@ def step_config(opt) -> TrainStepConfig:
         sgd_momentum=getattr(opt, "sgd_momentum", 0.9),
         sgd_dampening=getattr(opt, "sgd_dampening", 0.0),
         wdecay=getattr(opt, "wdecay", 0.0),
-        midas=net == "midas", depth_net=net,
+        midas=midas, depth_net=net,
         use_cnn=getattr(opt, "use_cnn", False),
         use_embedding=getattr(opt, "use_embedding", False),
         n_down=getattr(opt, "n_down", 3),
@@ -60,7 +65,7 @@ def step_config(opt) -> TrainStepConfig:
             flow_mul=opt.flow_mul, disp_mul=opt.disp_mul,
             acc_mul=opt.acc_mul, sf_mag_div=opt.sf_mag_div,
             use_disp=opt.use_disp, use_disp_ratio=opt.use_disp_ratio,
-            midas=net == "midas", weight_steps=opt.weight_steps,
+            midas=midas, weight_steps=opt.weight_steps,
             warm_reg=opt.warm_reg, interp_steps=opt.interp_steps),
         use_motion_seg=opt.use_motion_seg,
         compute_dtype=compute_dtype(opt),
@@ -89,18 +94,24 @@ class Model:
     def load_pretrained(self) -> bool:
         """Load the pretrained depth checkpoint when it exists (reference:
         models/scene_flow_motion_field.py:94-121); returns whether it did."""
-        if self.cfg.depth_net == "tiny":
+        net = self.cfg.depth_net
+        if net == "tiny":
             return False
-        midas = self.cfg.midas
-        path = (weights.MIDAS_PRETRAIN_PATH if midas
-                else weights.DEPTH_PRETRAIN_PATH)
+        path, unused = {
+            "midas": (weights.MIDAS_PRETRAIN_PATH,
+                      weights.PRETRAINED_LEFTOVERS),
+            "dpt_large": (weights.DPT_PRETRAIN_PATH, weights.DPT_LEFTOVERS),
+        }.get(net, (weights.DEPTH_PRETRAIN_PATH,
+                    weights.PRETRAINED_LEFTOVERS))
         if not os.path.isfile(path):
             print(f"Warning: pretrained depth checkpoint {path} not found; "
                   "using random init. Fetch the official artifacts with "
                   "scripts/download_data_and_depth_ckpt.sh or point "
-                  "DVD_MIDAS_CKPT / DVD_HOURGLASS_CKPT at them.", flush=True)
+                  "DVD_MIDAS_CKPT / DVD_DPT_CKPT / DVD_HOURGLASS_CKPT at "
+                  "them.", flush=True)
             return False
-        weights.load_pretrained_depth(self.step.net_depth, path, midas)
+        weights.load_pretrained_depth(self.step.net_depth, path,
+                                      net in MIDAS_FAMILY, unused)
         return True
 
     def count_params(self) -> Dict[str, int]:

@@ -54,7 +54,7 @@ import torch
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
-from ..models import (FCNUnet, HourglassModelEmbed, MidasNet,
+from ..models import (DPTDepthNet, FCNUnet, HourglassModelEmbed, MidasNet,
                       SceneFlowFieldNet, TinyDepthNet)
 from ..ops import (Camera, backward_warp, camera_to_world, depth_warp_stage,
                    projection_stage, unproject, unproject_camera)
@@ -64,7 +64,9 @@ from ..runtime.profiling import annotate
 from .losses import (LossConfig, acceleration_reg, consistency_sums,
                      disparity_vali_loss, masked_means)
 
-DEPTH_NETS = ("hourglass", "midas", "tiny")
+DEPTH_NETS = ("dpt_large", "hourglass", "midas", "tiny")
+# the nets that predict MiDaS-style inverse depth: the loss's far-field masks
+MIDAS_FAMILY = ("dpt_large", "midas")
 FUSED_MODES = ("auto", "on", "off")
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 OPTIMS = ("adam", "sgd")
@@ -158,6 +160,8 @@ class SceneFlowMotionFieldStep:
         elif net == "midas":
             net_depth = MidasNet(non_negative=True, normalize_input=True,
                                  resize=cfg.midas_resize, generator=gen)
+        elif net == "dpt_large":
+            net_depth = DPTDepthNet(generator=gen)
         else:
             net_depth = HourglassModelEmbed(use_embedding=cfg.use_embedding,
                                             generator=gen)
