@@ -2,11 +2,11 @@
 """Smoke test of the PyTorch + CUDA port on one GPU.
 
 Run from the repo root with no arguments: ``python3 chip_smoke.py``.
-``--only {warp,loss,corr,mlp} [--repo <checkout>]`` builds and times one
-kernel family alone, phase 2's lines for it (kernel A, kernel D, the
-lookup, or kernels B, C and fused_mlp, which share their tiles), for
-the package of another checkout too (a before/after on one card), and
-prints no result; ``--warp_only`` is ``--only warp``.
+``--only {warp,loss,corr,mlp,head} [--repo <checkout>]`` builds and times
+one kernel family alone, phase 2's lines for it (kernel A, kernel D, the
+lookup, kernels B, C and fused_mlp, which share their tiles, or the head
+convolution), for the package of another checkout too (a before/after on
+one card), and prints no result; ``--warp_only`` is ``--only warp``.
 
 1. Builds the hand-written kernels (``dynamic_video_depth_tpu_torch/csrc``),
    one nvcc per library, all at once, and prints the card's name and power
@@ -25,13 +25,17 @@ prints no result; ``--warp_only`` is ``--only warp``.
    at 288x512 (B = 2, a 36x64 grid, four levels, r = 4) beside its
    yardstick, four ``F.grid_sample`` calls and a ``torch.cat``; fused_mlp
    forward and backward at 86,016 points, 132 -> 256 -> 256 x4 -> 3 (on no
-   path, as in the JAX package). Then A-D at the largest shapes the bench
+   path, as in the JAX package); the depth heads' first convolution (3x3,
+   256 -> 128) at 112x192, batch 2 and 16, channels-last and contiguous,
+   and at 37x53, against cuDNN in float64 (within ``HEAD_FACTOR`` times
+   cuDNN float32's error) and timed beside cuDNN float32. Then A-D at the largest shapes the bench
    (phase 14) gives them (``BENCH_SHAPES``): the warp forward and backward
    at [16,224,384,C] and [1,320,576,C], C = 4 and 3, at the bench's flows
    and random +-60 px; B forward and backward and C at (1, 2), (2, 2) and
    (8, 8) at 1,376,256 points (batch 16) and 184,320 (320x576), the plain
    chain in chunks of ``CHAIN_CHUNK`` points at every size; D's main
-   configuration at batch 16 (320x576 is above). Each check records the
+   configuration at batch 16 (320x576 is above); the head convolution at
+   [32,256,112,192] and [2,256,160,288]. Each check records the
    kernel, variant and (batch, h, w) it held.
 3. Runs the canonical DAVIS recipe through the train entry
    (``dynamic_video_depth_tpu_torch.train``): the flags of
@@ -280,7 +284,7 @@ WIDE = (320, 576)
 TOL = {"warp_fwd": 1e-6, "warp_bwd": 1e-5, "mlp_fwd": 1e-4, "mlp_bwd": 1e-5,
        "chain_fwd": 1e-5, "chain_bwd": 1e-5, "loss_fwd": 1e-5,
        "loss_bwd": 1e-5, "dense_fwd": 1e-4, "dense_bwd": 1e-5,
-       "corr_lookup": 1e-6}
+       "corr_lookup": 1e-6, "head_conv_fwd": 1e-5}
 CHAINS = ((1, 2), (2, 2), (4, 4), (6, 6), (8, 8))  # (n_steps, n_evals)
 # of gaps 1, 2, 4, 6 and 8
 # the largest shapes the bench (tools/bench.py) gives the kernels, (batch,
@@ -309,7 +313,8 @@ SOURCE = {"warp_fwd": "warp.cu", "warp_bwd": "warp.cu",
           "mlp_fwd": "mlp_embed.cu", "mlp_bwd": "mlp_embed.cu",
           "chain_bwd": "mlp_chain.cu", "loss_fwd": "projection_loss.cu",
           "loss_bwd": "projection_loss.cu", "dense_fwd": "mlp_embed.cu",
-          "dense_bwd": "mlp_embed.cu", "corr_lookup": "corr_lookup.cu"}
+          "dense_bwd": "mlp_embed.cu", "corr_lookup": "corr_lookup.cu",
+          "head_conv_fwd": "head_conv.cu"}
 PALLAS = "dynamic_video_depth_tpu/ops/pallas/"
 REPLACES = {"warp_fwd": PALLAS + "warp_kernel.py:257",
             "warp_bwd": PALLAS + "warp_kernel.py:295",
@@ -320,7 +325,8 @@ REPLACES = {"warp_fwd": PALLAS + "warp_kernel.py:257",
             "loss_bwd": PALLAS + "loss_kernel.py:353",
             "dense_fwd": PALLAS + "mlp_kernel.py:134",
             "dense_bwd": PALLAS + "mlp_kernel.py:184",
-            "corr_lookup": PALLAS + "correlation.py:157"}
+            "corr_lookup": PALLAS + "correlation.py:157",
+            "head_conv_fwd": "none (the JAX package leaves it to XLA)"}
 # the canonical recipe and its chained test command (the smoke's phase 3)
 RECIPE = "experiments/davis/train_sequence.sh"
 TEST_TEMPLATE = "experiments/davis/test_cmd.txt"
@@ -335,9 +341,14 @@ GRAD_STATS = ("grad_norm_depth", "grad_norm_sf", "grad_max_depth",
 # the JAX package, and is held in phase 2 only
 HOURGLASS_KERNELS = ("warp_fwd", "warp_bwd", "mlp_fwd", "mlp_bwd")
 MIDAS_KERNELS = HOURGLASS_KERNELS + ("chain_bwd", "loss_fwd", "loss_bwd")
+# the float32 MiDaS path's depth head also takes the head convolution (the
+# bfloat16 one takes F.conv2d)
+F32_MIDAS_KERNELS = MIDAS_KERNELS + ("head_conv_fwd",)
 # the CNN scene-flow field takes neither kernel B nor the chain
 VARIANT_KERNELS = ("warp_fwd", "warp_bwd", "loss_fwd", "loss_bwd")
-PREPROCESS_KERNELS = ("corr_lookup",)
+# preprocessing: RAFT's lookup, and stage 1's float32 MiDaS takes the head
+# convolution
+PREPROCESS_KERNELS = ("corr_lookup", "head_conv_fwd")
 # RAFT at 288x512: a 36x64 grid at 1/8, four levels, radius 4; both
 # directions of one pair in one batch
 RAFT_GRID = (36, 64)
@@ -690,13 +701,13 @@ def report(results: dict, name: str, err: tuple, ms: float,
            plain_ms: float, what: str = "", variant: tuple = (),
            flops: float = 0.0, nbytes: float = 0.0,
            library_ms=None, excluded=None, split: str = "",
-           shape: tuple = ()) -> None:
+           shape: tuple = (), fma: bool = False) -> None:
     """Print one comparison, fail past the tolerance, and keep the worst
     error and the first timing of each kernel with its bound; ``variant``
     names the branch checked, as ``ops.cuda.launch_variants`` keys it.
     ``flops`` are the float32 operations of a matrix-product kernel (its
     bound is 3xTF32 on the tensor cores, and its f32-FMA bound is printed
-    too), ``nbytes`` the bytes a kernel must move (each input read once,
+    too; with ``fma`` the bound is float32 FMAs), ``nbytes`` the bytes a kernel must move (each input read once,
     each output written once); ``excluded`` the share of points whose
     cotangents the flip mask zeroed; ``split`` the device time of each
     CUDA kernel of one call (``device_split``); ``shape`` the (batch, h, w)
@@ -704,15 +715,16 @@ def report(results: dict, name: str, err: tuple, ms: float,
     with the name and variant as (name, variant, batch, h, w)."""
     ok = err[1] <= TOL[name]
     bytes_ms = 1e3 * nbytes / HBM_BYTES
-    ops_ms = 1e3 * 3.0 * flops / TF32_FLOPS
+    ops_ms = 1e3 * (flops / F32_FLOPS if fma else 3.0 * flops / TF32_FLOPS)
     bound_ms, bound_by = ((ops_ms, "operations") if ops_ms > bytes_ms
                           else (bytes_ms, "bytes"))
     extra = f", bound {bound_ms:.4f} ms ({bound_by}, {bound_ms / ms:.1%})"
     if flops:
         f32_ms = 1e3 * flops / F32_FLOPS
         extra += (f", {flops / ms / 1e9:.2f} TFLOP/s: {f32_ms / ms:.1%} of "
-                  f"the f32-FMA bound {f32_ms:.4f} ms, {ops_ms / ms:.1%} of "
-                  f"the 3xTF32 bound")
+                  f"the f32-FMA bound {f32_ms:.4f} ms")
+        if not fma:
+            extra += f", {ops_ms / ms:.1%} of the 3xTF32 bound"
     if library_ms is not None:
         extra += f", library {library_ms:.4f} ms"
     if excluded is not None:
@@ -1336,6 +1348,71 @@ def phase_lookup(dev, results: dict) -> None:
           f"abs err {lib_err[0]:.3e} rel {lib_err[1]:.3e}", flush=True)
 
 
+# the head convolution (kernel row 11), 256 -> 128, (batch, h, w, memory
+# order): the train step's 112x192 at batch 2 (the recipe's pair) and 16
+# (the fast recipe's 8 pairs), channels-last as the nets hand it over and
+# contiguous, and odd H and W; then channels-last at the bench's shapes
+# (BENCH_SHAPES: a pair a batch row, half the image's size)
+HEAD_CHANNELS = (256, 128)
+HEAD_SHAPES = ((2, H // 2, W // 2, "nhwc"), (16, H // 2, W // 2, "nhwc"),
+               (2, H // 2, W // 2, "nchw4"), (16, H // 2, W // 2, "nchw4"),
+               (3, 37, 53, "nhwc"), (3, 37, 53, "nchw1"))
+# its error against float64 within this many times cuDNN float32's
+HEAD_FACTOR = 10
+
+
+def phase_kernel_head(dev, results: dict) -> None:
+    """Phase 2's row 11: the head convolution against cuDNN in float64 on
+    the card, within ``HEAD_FACTOR`` times cuDNN float32's error (TF32
+    off), timed beside cuDNN float32 (the plain version, and the library
+    call it replaces); its bound is float32 FMAs."""
+    import torch
+    import torch.nn.functional as F
+
+    from dynamic_video_depth_tpu_torch.ops.cuda import head_conv_kernel
+
+    torch.backends.cudnn.allow_tf32 = False
+    cin, cout = HEAD_CHANNELS
+    bench = tuple((2 * b, h // 2, w // 2, "nhwc") for b, h, w in BENCH_SHAPES)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for n, h, w, order in HEAD_SHAPES + bench:
+        x = torch.randn(n, cin, h, w, device=dev, generator=gen)
+        if order == "nhwc":
+            x = x.to(memory_format=torch.channels_last)
+        wt = torch.randn(cout, cin, 3, 3, device=dev,
+                         generator=gen) * (9 * cin) ** -0.5
+        b = torch.randn(cout, device=dev, generator=gen)
+        ref = F.conv2d(x.double(), wt.double(), b.double(), padding=1)
+
+        def kernel():
+            return head_conv_kernel.head_conv_forward_cuda(x, wt, b)
+
+        def library():
+            return head_conv_kernel.head_conv_plain(x, wt, b)
+
+        err = rel_err(kernel().double(), ref)
+        lib_err = rel_err(library().double(), ref)
+        del ref
+        if head_conv_kernel.variant(x) != order:
+            fail(f"head_conv_fwd: {order} input took the "
+                 f"{head_conv_kernel.variant(x)} path")
+        if not err[1] <= HEAD_FACTOR * lib_err[1]:
+            fail(f"head_conv_fwd [{n},{cin},{h},{w}]: error {err[1]:.3e} "
+                 f"against float64, more than {HEAD_FACTOR}x cuDNN "
+                 f"float32's {lib_err[1]:.3e}")
+        lib_ms = time_ms(library, reps=3, warmup=1)
+        what = (f" [{n},{cin},{h},{w}] {order} -> {cout} (cuDNN float32 "
+                f"rel {lib_err[1]:.3e})")
+        report(results, "head_conv_fwd", err, time_ms(kernel), lib_ms, what,
+               variant=(order,),
+               flops=2.0 * n * h * w * cout * cin * 9,
+               nbytes=4.0 * (n * h * w * (cin + cout) + cout * (9 * cin + 1)),
+               library_ms=lib_ms, split=device_split(kernel),
+               shape=(n // 2, 2 * h, 2 * w), fma=True)
+        del x
+        torch.cuda.empty_cache()
+
+
 def phase_dense(dev, results: dict) -> None:
     """fused_mlp forward and backward at N = 86,016 with the canonical
     widths 132 -> 256 -> 256 x4 -> 3 against the plain stack (the backward
@@ -1584,7 +1661,7 @@ def phase_recipe(dev, workdir: str, card: str):
     run = build_run(argv)
     logdir = run.logdir
     counts, variants, walls = phase_trainer(dev, "midas", run.trainer, gaps,
-                                            MIDAS_KERNELS, midas=True)
+                                            F32_MIDAS_KERNELS, midas=True)
     hist = run.trainer.history
     t0 = time.perf_counter()
     run.chain_test()
@@ -3908,7 +3985,8 @@ def phase_mlp(dev, results: dict) -> None:
 ONLY = {"warp": ("warp_kernel", phase_kernel_a),
         "loss": ("loss_kernel", phase_kernel_d),
         "corr": ("corr_kernel", phase_lookup),
-        "mlp": ("mlp_kernel", phase_mlp)}
+        "mlp": ("mlp_kernel", phase_mlp),
+        "head": ("head_conv_kernel", phase_kernel_head)}
 
 
 def main() -> None:
@@ -3950,6 +4028,7 @@ def main() -> None:
     phase_kernel_d(dev, results)
     phase_lookup(dev, results)
     phase_dense(dev, results)
+    phase_kernel_head(dev, results)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as workdir:
         counts, midas_variants, f32_run = phase_recipe(dev, workdir, card)
@@ -3983,6 +4062,9 @@ def main() -> None:
     if hourglass["chain_bwd"] or hourglass["loss_fwd"]:
         fail(f"the hourglass path with the fused paths off launched kernel "
              f"C or D: {hourglass}")
+    if hourglass["head_conv_fwd"] or bf16["head_conv_fwd"]:
+        fail(f"the hourglass or the bfloat16 MiDaS path launched the head "
+             f"convolution: {hourglass}, {bf16}")
     if not (midas_variants.get(("warp_fwd", 3))
             and midas_variants.get(("warp_bwd", 3))):
         fail(f"the MiDaS path did not launch the warp at 3 channels: "

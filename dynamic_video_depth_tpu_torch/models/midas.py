@@ -33,6 +33,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ..ops.cuda import head_conv_kernel
 from ..ops.resize import resize_bicubic, upsample2x_nchw
 from .blocks import init_module, lecun_normal
 
@@ -154,6 +155,25 @@ class _Upsample2x(nn.Module):
         return upsample2x_nchw(x, align_corners=self.align_corners)
 
 
+class HeadConv2d(nn.Conv2d):
+    """The heads' first layer, a 3x3 convolution with padding 1 and bias.
+    A float32 input on a CUDA device takes the hand-written kernel
+    (``ops/cuda/head_conv_kernel.py::HeadConvFn``: cuDNN's float32 pick for
+    this shape is its FFT route); any other input (the CPU, the bfloat16
+    depth compute, the ``meta`` device of the work counts) ``nn.Conv2d``'s
+    own ``F.conv2d``."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__(in_channels, out_channels, 3, padding=1)
+
+    def forward(self, x):
+        if x.dtype == torch.float32 and \
+                head_conv_kernel.device_type(x) == "cuda":
+            return head_conv_kernel.HeadConvFn.apply(x, self.weight,
+                                                     self.bias)
+        return super().forward(x)
+
+
 def output_head(features: int, mid: int, last: nn.Module,
                 align_corners: bool = False) -> nn.Sequential:
     """3x3 -> ``mid``, bilinear 2x, 3x3 -> 32, ReLU, 1x1 -> 1, ``last``:
@@ -161,7 +181,7 @@ def output_head(features: int, mid: int, last: nn.Module,
     without aligned corners) and mask head (``output_conv_mask``), and the
     DPT's depth head (``mid = features // 2``, aligned corners)."""
     return nn.Sequential(
-        nn.Conv2d(features, mid, 3, padding=1), _Upsample2x(align_corners),
+        HeadConv2d(features, mid), _Upsample2x(align_corners),
         nn.Conv2d(mid, 32, 3, padding=1), nn.ReLU(),
         nn.Conv2d(32, 1, 1), last)
 

@@ -4,10 +4,11 @@ compiled at its first launch on a CUDA tensor (``build.py``)."""
 
 from concurrent.futures import ThreadPoolExecutor
 
-from . import chain_kernel, corr_kernel, loss_kernel, mlp_kernel, warp_kernel
+from . import (chain_kernel, corr_kernel, head_conv_kernel, loss_kernel,
+               mlp_kernel, warp_kernel)
 
 KERNEL_MODULES = (warp_kernel, mlp_kernel, chain_kernel, loss_kernel,
-                  corr_kernel)
+                  corr_kernel, head_conv_kernel)
 
 
 def build_all() -> None:
@@ -34,6 +35,7 @@ def launch_counts() -> dict:
 def launch_variants() -> dict:
     """Launches since the last reset by the shape that picks a kernel's
     branch: the warp's channel count, the chain's (n_steps, n_evals), the
-    lookup's (radius, levels)."""
+    lookup's (radius, levels), the head convolution's memory order and
+    copy width."""
     return dict(warp_kernel.launch_variants() + chain_kernel.variants
-                + corr_kernel.variants)
+                + corr_kernel.variants + head_conv_kernel.variants)

@@ -2,14 +2,16 @@
 (counterpart of ``scripts/step_profile.py``).
 
     python -m dynamic_video_depth_tpu_torch.tools.step_profile \\
-        [--iters 3] [--out DIR] [--bf16] [--depth_net midas|hourglass] \\
+        [--iters 3] [--out DIR] [--bf16] \\
+        [--depth_net midas|hourglass|dpt_large] [--pairs 1] \\
         [--fused auto|on|off] [--gap 2] [--json]
     python -m dynamic_video_depth_tpu_torch.tools.step_profile \\
         --analyze-only --out DIR      # DIR/trace.json, e.g. a --profile_dir
 
 ``capture`` builds the step through ``train/step.py`` on the card with the
 DAVIS recipe's hyperparameters (MiDaS fused, 224x384, batch 1, gap 2,
-float32 with TF32 off; ``--bf16`` is ``--mixed_precision_training``'s
+float32 with TF32 off; ``--pairs`` is the batch, ``train_sequence_fast.sh``'s
+8 for one; ``--bf16`` is ``--mixed_precision_training``'s
 bfloat16 depth compute) on one pair of a synthetic track
 (``data/synthetic.py``), with the MiDaS output biased as the fixtures do
 (``bias_midas_output``) so that the loss masks are live. After warm-up
@@ -31,8 +33,9 @@ its thread, and reports, per step:
   gradient (by the cuDNN kernel's name: ``fprop``/``dgrad``/``wgrad``; a
   backward kernel that names neither is ``conv bwd``), each split into
   FFT, Winograd, implicit GEMM, direct and other kernels; GEMM; the
-  hand-written kernels A-D, the lookup and fused_mlp by name; the
-  optimizer; elementwise and reduction kernels; memcpy; memset; other;
+  hand-written kernels A-D, the lookup, fused_mlp and the head conv by
+  name; the optimizer; elementwise and reduction kernels; memcpy; memset;
+  other;
 - convolution device time by the shape of its ``aten::convolution`` /
   ``aten::convolution_backward`` op (input, weight, stride, padding,
   groups);
@@ -71,6 +74,7 @@ HAND_KERNELS = {
     "fused_mlp": ("dense_fwd", "dense_bwd_points"),
     "B/C/fused_mlp tiles (packing, dW)": ("pack_weights", "mlp_dw_partial",
                                           "mlp_dw_reduce"),
+    "head conv": ("head_conv_fwd",),
 }
 CONV_FWD, CONV_BWD = "aten::convolution", "aten::convolution_backward"
 # (stride, padding, dilation, groups) among each op's concrete inputs
@@ -109,24 +113,27 @@ def step_options(depth_net: str, bf16: bool, fused: str):
     return cli.build_parser().parse_args(argv)
 
 
-def synthetic_pair(root: str, gap: int, h: int, w: int, device):
-    """The first training pair at ``gap`` of a synthetic track, on
-    ``device``."""
+def synthetic_pair(root: str, gap: int, h: int, w: int, device,
+                   pairs: int = 1):
+    """The first ``pairs`` training pairs at ``gap`` of a synthetic track,
+    as one batch on ``device``."""
     from ..data.batches import collate_batches, to_device
     from ..data.davis_sequence import Dataset
     from ..data.synthetic import make_track
 
-    make_track(root, track="profile", n_frames=gap + 2, h=h, w=w,
+    make_track(root, track="profile", n_frames=gap + pairs + 1, h=h, w=w,
                gaps=(gap,))
     ds = Dataset(argparse.Namespace(track_id="profile", gaps=str(gap),
                                     subsample=False, data_root=root),
                  mode="train")
-    return to_device(collate_batches([ds[0]]), device)
+    return to_device(collate_batches([ds[i] for i in range(pairs)]),
+                     device)
 
 
 def capture(outdir: str, iters: int = 3, depth_net: str = "midas",
             bf16: bool = False, fused: str = "auto", gap: int = 2,
-            h: int = 224, w: int = 384, warmup: int = 3) -> str:
+            h: int = 224, w: int = 384, warmup: int = 3,
+            pairs: int = 1) -> str:
     """Trace ``iters`` main steps on the card into ``outdir/trace.json``;
     returns its path."""
     import torch
@@ -142,10 +149,10 @@ def capture(outdir: str, iters: int = 3, depth_net: str = "midas",
     dev = torch.device("cuda", 0)
     step = SceneFlowMotionFieldStep(
         step_config(step_options(depth_net, bf16, fused)), device=dev)
-    if depth_net == "midas":
+    if depth_net != "hourglass":
         bias_midas_output(step.net_depth)
     with tempfile.TemporaryDirectory() as root:
-        batch = synthetic_pair(root, gap, h, w, dev)
+        batch = synthetic_pair(root, gap, h, w, dev, pairs)
     for _ in range(warmup):
         step.train_step(batch, steps=gap, warm=False)
     torch.cuda.synchronize()
@@ -430,7 +437,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="bfloat16 depth compute "
                     "(--mixed_precision_training)")
     ap.add_argument("--depth_net", default="midas",
-                    choices=("midas", "hourglass"))
+                    choices=("midas", "hourglass", "dpt_large"))
+    ap.add_argument("--pairs", type=int, default=1,
+                    help="pairs a batch (the recipe's 1)")
     ap.add_argument("--fused", default="auto", choices=("auto", "on", "off"),
                     help="the fused chain and loss (--use_pallas_sf_chain, "
                     "--use_pallas_loss)")
@@ -440,7 +449,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--top", type=int, default=15)
     a = ap.parse_args(argv)
     if not a.analyze_only:
-        path = capture(a.out, a.iters, a.depth_net, a.bf16, a.fused, a.gap)
+        path = capture(a.out, a.iters, a.depth_net, a.bf16, a.fused, a.gap,
+                       pairs=a.pairs)
         print(f"trace written to {path}")
     events, card, path = load_trace(a.out)
     try:

@@ -11,7 +11,10 @@ adds in atomic order; the MLP and the chain run 3xTF32 tensor-core
 products (float32 accuracy, another summation order than cuBLAS); the loss
 kernel is built without FMA contraction, so per pixel it matches its plain
 version and only the order of the global sums differs; the correlation
-lookup differs from its plain gather by FMA contraction only.
+lookup differs from its plain gather by FMA contraction only. The head
+convolution sums its 2,304 products a value in one float32 accumulator, in
+order: it is held to ``HEAD_FACTOR`` times cuDNN float32's own distance
+from a float64 result (cuDNN's FFT route sums in another way).
 
 The MLP and chain gradient checks zero the cotangents of the points whose
 hidden pre-activations lie within roundoff of 0 (``chip_smoke.flip_points``,
@@ -27,6 +30,7 @@ import torch
 from chip_smoke import (chain_features, flip_points, misaligned, random_flow,
                         track_flows, zero_rows)
 from dynamic_video_depth_tpu_torch.ops.cuda import (chain_kernel, corr_kernel,
+                                                  head_conv_kernel,
                                                   loss_kernel, mlp_kernel,
                                                   warp_kernel)
 from dynamic_video_depth_tpu_torch.ops.embedding import sceneflow_features
@@ -497,6 +501,7 @@ def test_bf16_midas_step_on_the_card(dev, small_track):
     assert all(launches[k] > 0 for k in ("warp_fwd", "warp_bwd", "mlp_fwd",
                                          "chain_bwd", "loss_fwd",
                                          "loss_bwd")), launches
+    assert launches["head_conv_fwd"] == 0  # bfloat16 takes F.conv2d
     cpu, cpu_depth, _ = _steps_on(cfg("bfloat16"), small_track, "cpu",
                                   bias_midas=True)
     f32, f32_depth, _ = _steps_on(cfg("float32"), small_track, "cpu",
@@ -511,6 +516,27 @@ def test_bf16_midas_step_on_the_card(dev, small_track):
             loss_gap = abs(b[k] - f[k])
             assert abs(c[k] - f[k]) <= 2 * loss_gap + 1e-4 * abs(f[k]), k
     assert card[0]["loss"] > 0.0 and card[1]["loss"] > 0.0
+
+
+def test_f32_midas_step_launches_the_head_conv_once_a_step(dev,
+                                                           small_track):
+    """A float32 MiDaS warm-up and main step on the card run the depth
+    head's first convolution through its kernel, once a step, and the
+    losses match the same steps on the CPU (``F.conv2d`` there) at rtol
+    1e-4."""
+    from dynamic_video_depth_tpu_torch.train import LossConfig, TrainStepConfig
+
+    cfg = TrainStepConfig(
+        lr=1e-6, scene_lr_mul=1000.0, depth_net="midas", midas=True,
+        loss=LossConfig(flow_mul=1.0, disp_mul=1.0, acc_mul=1.0,
+                        use_disp=True, midas=True))
+    card, _, launches = _steps_on(cfg, small_track, dev, bias_midas=True)
+    assert launches["head_conv_fwd"] == 2, launches
+    cpu, _, _ = _steps_on(cfg, small_track, "cpu", bias_midas=True)
+    for c, p in zip(card, cpu):
+        for k in ("loss", "flow_loss_1_2", "disp_loss_1_2", "sf_loss"):
+            assert abs(c[k] - p[k]) <= 1e-4 * abs(p[k]) + 1e-7, k
+    assert card[1]["loss"] > 0.0
 
 
 def test_cnn_sgd_step_on_the_card(dev, small_track):
@@ -846,3 +872,109 @@ def test_reference_geometry_on_the_card_matches_the_cpu(dev):
         assert _rel(p1[k].detach().cpu(), p0[k].detach()) <= 1e-5, k
     assert _rel(g11.cpu(), g10) <= 1e-5 and _rel(g21.cpu(), g20) <= 1e-5
     assert _rel(r1.cpu(), r0) <= 1e-5
+
+
+# the head convolution's error against float64 within this many times
+# cuDNN float32's (the method of the mask head's test)
+HEAD_FACTOR = 10
+
+
+def _head_inputs(n, cin, h, w, cout, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, cin, h, w, generator=g)
+    wt = torch.randn(cout, cin, 3, 3, generator=g) * (cin * 9) ** -0.5
+    return x, wt, torch.randn(cout, generator=g)
+
+
+@pytest.mark.parametrize("n,h,w,order", [
+    (2, 112, 192, "nhwc"), (16, 112, 192, "nhwc"), (3, 37, 53, "nhwc"),
+    (2, 112, 192, "nchw4"), (3, 37, 53, "nchw1")])
+def test_head_conv_kernel_matches_float64(dev, n, h, w, order):
+    """The kernel at the heads' shape (256 -> 128) at batch 2 and 16 and at
+    odd H and W, channels-last (the nets' order) and contiguous (16- and
+    4-byte copies), against a float64 CPU convolution: within
+    ``HEAD_FACTOR`` times cuDNN float32's error."""
+    import torch.nn.functional as F
+
+    x, wt, b = _head_inputs(n, 256, h, w, 128)
+    ref = F.conv2d(x.double(), wt.double(), b.double(), padding=1)
+    xd, wd, bd = x.to(dev), wt.to(dev), b.to(dev)
+    if order == "nhwc":
+        xd = xd.to(memory_format=torch.channels_last)
+    head_conv_kernel.reset_launches()
+    got = head_conv_kernel.head_conv_forward_cuda(xd, wd, bd)
+    assert got.is_contiguous(memory_format=torch.channels_last
+                             if order == "nhwc" else torch.contiguous_format)
+    got = got.cpu().double()
+    lib = F.conv2d(xd, wd, bd, padding=1).cpu().double()
+    assert head_conv_kernel.variants == {("head_conv_fwd", order): 1}
+    err, lib_err = (got - ref).abs().max(), (lib - ref).abs().max()
+    assert err <= HEAD_FACTOR * lib_err, (err, lib_err)
+
+
+@pytest.mark.parametrize("order", [torch.channels_last,
+                                   torch.contiguous_format])
+def test_head_conv_module_gradients_equal_conv2d(dev, order):
+    """Through ``HeadConv2d`` on the card the gradients of x, w and b are
+    ``nn.Conv2d``'s (the same ``convolution_backward``), the output has
+    ``nn.Conv2d``'s memory order, and the forward launched the kernel
+    once."""
+    from torch import nn
+
+    from dynamic_video_depth_tpu_torch.models.midas import HeadConv2d
+
+    x, wt, b = _head_inputs(2, 256, 112, 192, 128, seed=1)
+    cot = torch.randn(2, 128, 112, 192,
+                      generator=torch.Generator().manual_seed(2)).to(dev)
+    head, plain = HeadConv2d(256, 128).to(dev), nn.Conv2d(
+        256, 128, 3, padding=1).to(dev)
+    for m in (head, plain):
+        m.load_state_dict({"weight": wt, "bias": b})
+    head_conv_kernel.reset_launches()
+    grads, orders = [], []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for m in (head, plain):
+            xi = x.to(dev).to(memory_format=order).requires_grad_(True)
+            y = m(xi)
+            orders.append(y.is_contiguous(memory_format=torch.channels_last))
+            (y * cot).sum().backward()
+            grads.append((xi.grad, m.weight.grad, m.bias.grad))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert head_conv_kernel.launches == {"head_conv_fwd": 1}
+    assert orders[0] == orders[1]
+    for a, c in zip(*grads):
+        assert torch.equal(a, c)
+
+
+def test_head_conv_counts_float32_launches_only(dev):
+    """One launch a float32 forward, none for a bfloat16 input (the
+    bfloat16 depth compute takes ``F.conv2d``)."""
+    from dynamic_video_depth_tpu_torch.models.midas import HeadConv2d
+
+    head = HeadConv2d(256, 128).to(dev)
+    x = torch.randn(1, 256, 16, 24, device=dev)
+    head_conv_kernel.reset_launches()
+    with torch.no_grad():
+        head(x)
+        head(x)
+        assert head_conv_kernel.launches == {"head_conv_fwd": 2}
+        head.to(torch.bfloat16)(x.to(torch.bfloat16))
+    assert head_conv_kernel.launches == {"head_conv_fwd": 2}
+
+
+@pytest.mark.parametrize("what", ["strided", "cin", "cout"])
+def test_head_conv_wrapper_raises_on_the_card(dev, what):
+    x, wt, b = (t.to(dev) for t in _head_inputs(1, 256, 8, 12, 128))
+    if what == "strided":  # neither contiguous nor channels-last
+        x = x.transpose(2, 3)
+    elif what == "cin":
+        x, wt = x[:, :12].contiguous(), wt[:, :12].contiguous()
+    else:
+        wt, b = wt[:64].contiguous(), b[:64].contiguous()
+    head_conv_kernel.reset_launches()
+    with pytest.raises(ValueError):
+        head_conv_kernel.head_conv_forward_cuda(x, wt, b)
+    assert head_conv_kernel.launches == {"head_conv_fwd": 0}
