@@ -25,6 +25,8 @@ import os
 
 import pytest
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_PKG = os.path.join(ROOT, "dynamic_video_depth_tpu")
 PORT_PKG = os.path.join(ROOT, "dynamic_video_depth_tpu_torch")

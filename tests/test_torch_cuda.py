@@ -34,6 +34,7 @@ from dynamic_video_depth_tpu_torch.ops.cuda import (chain_kernel, corr_kernel,
                                                   loss_kernel, mlp_kernel,
                                                   warp_kernel)
 from dynamic_video_depth_tpu_torch.ops.embedding import sceneflow_features
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the canonical field, 132 -> 256 -> 256 x4 -> 3
 CANON = [132, 256, 256, 256, 256, 256, 3]

@@ -18,6 +18,7 @@ from dynamic_video_depth_tpu_torch.runtime import weights
 from dynamic_video_depth_tpu_torch.train import cli
 from dynamic_video_depth_tpu_torch.train import scene_flow_motion_field as sfm
 from dynamic_video_depth_tpu_torch.train.step import SceneFlowMotionFieldStep
+from torch_threads import one_torch_thread  # noqa: F401
 
 CONFIG = os.path.join(spec.HERE, "configs", "dpt_large.json")
 # width 64 in 4 heads, 4 blocks all hooked, a 3x3 pretraining grid: a

@@ -64,6 +64,7 @@ from dynamic_video_depth_tpu_torch.runtime.checkpoint import read_checkpoint
 from dynamic_video_depth_tpu_torch.train import cli, fleet
 from dynamic_video_depth_tpu_torch.train.loop import LOG_KEYS, group_by_gap
 from dynamic_video_depth_tpu_torch.train.scene_flow_motion_field import Model
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TRACKS = ("dog", "cat")

@@ -12,6 +12,7 @@ from dynamic_video_depth_tpu.ops import geometry as jgeo
 from dynamic_video_depth_tpu.ops.grid_sample import grid_sample as jax_grid_sample
 from dynamic_video_depth_tpu_torch.ops import camera, coords, geometry
 from dynamic_video_depth_tpu_torch.ops.grid_sample import grid_sample
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _rot(rng, b, angle=0.1):

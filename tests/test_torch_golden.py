@@ -26,6 +26,7 @@ from dynamic_video_depth_tpu_torch.models.raft import RAFT
 from dynamic_video_depth_tpu_torch.tools import golden, golden_depth, \
     golden_raft
 from torch_replicas import randomize_bn_stats
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RES = (64, 96)

@@ -20,6 +20,7 @@ from dynamic_video_depth_tpu_torch.ops.cuda import head_conv_kernel as hk
 
 from test_torch_dpt import TINY, config, port_net, reference_module
 from test_torch_package import _FakeLib, _pretend_cuda
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _pair(cin=16, cout=128, seed=0):

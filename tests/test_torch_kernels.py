@@ -22,6 +22,7 @@ from dynamic_video_depth_tpu.ops.pallas.warp_kernel import fused_backward_warp
 from dynamic_video_depth_tpu_torch.ops import embedding
 from dynamic_video_depth_tpu_torch.ops.cuda import (chain_kernel, loss_kernel,
                                                   mlp_kernel, warp_kernel)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -17,6 +17,7 @@ import torch
 from dynamic_video_depth_tpu_torch.train import cli
 from dynamic_video_depth_tpu_torch.train.loop import LOG_KEYS
 from dynamic_video_depth_tpu_torch.train.loop import Trainer as PortTrainer
+from torch_threads import one_torch_thread  # noqa: F401
 
 PAIRS_PER_GAP = {1: 17, 2: 16, 4: 14}  # 47 pairs; 5 groups of 8
 EPOCHS = 3

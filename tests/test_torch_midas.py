@@ -13,6 +13,7 @@ from dynamic_video_depth_tpu.ops import resize as jax_resize
 from dynamic_video_depth_tpu_torch.models import MidasNet
 from dynamic_video_depth_tpu_torch.ops import resize
 from dynamic_video_depth_tpu_torch.runtime import weights
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("h,w,c", [(5, 7, 3), (8, 3, 2)])

@@ -19,6 +19,7 @@ import torch
 from dynamic_video_depth_tpu.models import MidasNet as JaxMidas
 from dynamic_video_depth_tpu_torch.models import MidasNet
 from dynamic_video_depth_tpu_torch.runtime import weights
+from torch_threads import one_torch_thread  # noqa: F401
 
 HW = 64
 

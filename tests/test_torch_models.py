@@ -14,6 +14,7 @@ from dynamic_video_depth_tpu_torch.models import (HourglassModelEmbed,
                                                   SceneFlowFieldNet,
                                                   TinyDepthNet)
 from dynamic_video_depth_tpu_torch.runtime import weights
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _numpy_tree(tree):

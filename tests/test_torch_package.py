@@ -1,7 +1,9 @@
 """Guards of the port: it never imports JAX or the JAX package, and a kernel
 wrapper handed a CUDA tensor launches its kernel (or raises) and never takes
-the plain version."""
+the plain version; every port test module runs torch on the shared thread
+fixture."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -13,8 +15,13 @@ from dynamic_video_depth_tpu_torch.ops import cuda as cuda_ops
 from dynamic_video_depth_tpu_torch.ops.cuda import (chain_kernel, corr_kernel,
                                                   loss_kernel, mlp_kernel,
                                                   warp_kernel)
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TESTS = os.path.join(REPO, "tests")
+# the only modules of tests/ besides the helper that set a thread count:
+# they mirror the program's own rank threads (train/fleet.py::_rank_main)
+THREAD_MIRRORS = {"test_torch_fleet.py", "torch_parallel_worker.py"}
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -350,3 +357,36 @@ def test_entry_points_default_to_the_card(module, name, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _call_with_default_device(fn, tmp_path)
     assert not (tmp_path / "flows").exists()
+
+
+def _tree(name):
+    with open(os.path.join(TESTS, name)) as f:
+        return ast.parse(f.read(), name)
+
+
+def _sets_threads(node):
+    """A call of torch's thread setters, or ``OMP_NUM_THREADS`` named."""
+    return (isinstance(node, ast.Attribute)
+            and node.attr in ("set_num_threads", "set_num_interop_threads")
+            or isinstance(node, ast.Constant)
+            and node.value == "OMP_NUM_THREADS"
+            or isinstance(node, ast.keyword) and node.arg == "OMP_NUM_THREADS")
+
+
+def test_port_test_modules_apply_the_thread_fixture():
+    """Every ``tests/test_torch_*.py`` imports ``torch_threads``'s autouse
+    fixture at its top level, and no module of ``tests/`` but the helper,
+    ``THREAD_MIRRORS`` and this guard sets torch's thread count or names
+    ``OMP_NUM_THREADS``."""
+    names = sorted(n for n in os.listdir(TESTS) if n.endswith(".py"))
+    port = [n for n in names if n.startswith("test_torch_")]
+    assert port
+    missing = [n for n in port if not any(
+        isinstance(node, ast.ImportFrom) and node.module == "torch_threads"
+        and any(a.name == "one_torch_thread" for a in node.names)
+        for node in _tree(n).body)]
+    assert missing == []
+    skip = {"torch_threads.py", os.path.basename(__file__)}
+    setters = {n for n in names if n not in skip
+               and any(map(_sets_threads, ast.walk(_tree(n))))}
+    assert setters == THREAD_MIRRORS

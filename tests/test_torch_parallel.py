@@ -46,6 +46,7 @@ from dynamic_video_depth_tpu.train.step import (
     SceneFlowMotionFieldStep as JaxStep)
 from dynamic_video_depth_tpu_torch.runtime import weights
 from dynamic_video_depth_tpu_torch.train import LossConfig, TrainStepConfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 LOG_KEYS = ("loss", "flow_loss_1_2", "disp_loss_1_2", "sf_loss", "acc_reg")
 SCHEDULE = ((1, True), (2, False))

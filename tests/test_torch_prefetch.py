@@ -31,6 +31,7 @@ from dynamic_video_depth_tpu_torch.runtime.loggers import (BaseLogger,
 from dynamic_video_depth_tpu_torch.train import cli, loop
 from dynamic_video_depth_tpu_torch.train.loop import (LOG_KEYS,
                                                       LOG_PIPELINE_DEPTH)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -23,6 +23,7 @@ from dynamic_video_depth_tpu_torch.data.synthetic import (make_raw_davis,
                                                           write_raw_davis)
 from dynamic_video_depth_tpu_torch.ops import resize
 from dynamic_video_depth_tpu_torch.preprocess import flows, frames, pairs
+from torch_threads import one_torch_thread  # noqa: F401
 
 FRAME_KEYS = ("img", "pose_c2w", "intrinsics", "depth_pred", "depth_mvs",
               "img_orig", "motion_seg")

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from dynamic_video_depth_tpu_torch.tools import roofline, step_profile
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _span(name, tid, ts, dur, cat="user_annotation", **args):

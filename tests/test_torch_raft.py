@@ -16,6 +16,7 @@ from dynamic_video_depth_tpu.ops.pallas.correlation import (
 from dynamic_video_depth_tpu_torch.models import raft
 from dynamic_video_depth_tpu_torch.ops.cuda import corr_kernel
 from dynamic_video_depth_tpu_torch.runtime import weights
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _pyramid(rng, b, h, w, levels):

@@ -44,6 +44,7 @@ from dynamic_video_depth_tpu_torch.runtime.checkpoint import (load_opt,
 from dynamic_video_depth_tpu_torch.train import cli
 from dynamic_video_depth_tpu_torch.train.loop import LOG_KEYS
 from dynamic_video_depth_tpu_torch.train.scene_flow_motion_field import Model
+from torch_threads import one_torch_thread  # noqa: F401
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 RECIPE = os.path.join(HERE, "..", "experiments", "davis", "train_sequence.sh")

@@ -26,6 +26,7 @@ from dynamic_video_depth_tpu_torch.ops.cuda import warp_kernel
 from dynamic_video_depth_tpu_torch.runtime import weights
 
 from test_torch_geometry import _cameras, _jax_cam, _torch_cam
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, H, W = 2, 12, 16
 

@@ -20,6 +20,7 @@ from dynamic_video_depth_tpu_torch.train import cli
 
 import dynamic_video_depth_tpu.runtime.config as jax_config
 import dynamic_video_depth_tpu.runtime.loggers as jax_loggers
+from torch_threads import one_torch_thread  # noqa: F401
 
 FLAGS = ["--net", "scene_flow_motion_field", "--dataset", "davis_sequence",
          "--track_id", "dog", "--gaps", "1,2", "--epoch_batches", "2",

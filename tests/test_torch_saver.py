@@ -21,6 +21,7 @@ from dynamic_video_depth_tpu_torch.runtime import checkpoint as ck
 from dynamic_video_depth_tpu_torch.train import cli
 
 from test_torch_runtime import _equal, _run_flags, _trained_step, track_root
+from torch_threads import one_torch_thread  # noqa: F401
 
 __all__ = ["track_root"]  # the module fixture, shared with this file
 

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 from dynamic_video_depth_tpu_torch.preprocess import flows, run_shutterstock
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = dirname(dirname(os.path.abspath(__file__)))
 FRAME_KEYS = ("img", "pose_c2w", "intrinsics", "depth_pred", "depth_mvs",

@@ -27,6 +27,7 @@ from dynamic_video_depth_tpu_torch.train import (LossConfig,
                                                  SceneFlowMotionFieldStep,
                                                  TrainStepConfig)
 from dynamic_video_depth_tpu_torch.train import cli
+from torch_threads import one_torch_thread  # noqa: F401
 
 LOG_KEYS = ("loss", "flow_loss_1_2", "disp_loss_1_2", "sf_loss", "acc_reg")
 NET = dict(lr=1e-4, scene_lr_mul=10.0, depth_net="tiny", net_width=32,

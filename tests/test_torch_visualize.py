@@ -22,6 +22,7 @@ import dynamic_video_depth_tpu.utils.html as jax_html
 import dynamic_video_depth_tpu.utils.metrics as jax_metrics
 import dynamic_video_depth_tpu.utils.printing as jax_printing
 import dynamic_video_depth_tpu.utils.visualizer as jax_visualizer
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_turbo_table_is_matplotlibs():

@@ -18,6 +18,8 @@ import sys
 import numpy as np
 import torch
 
+from torch_threads import THREADS
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:
     sys.path.insert(0, REPO)
@@ -104,7 +106,7 @@ def run(rank, world, init_file, cases_file, out_dir, devices=None,
     from dynamic_video_depth_tpu_torch.parallel import initialize_distributed
 
     device = torch.device(devices[rank] if devices else "cpu")
-    torch.set_num_threads(1)
+    torch.set_num_threads(THREADS)
     initialize_distributed(backend, "file://" + init_file, world, rank,
                            device)
     try:
